@@ -1,0 +1,162 @@
+"""PyTorch port parity: AA_diffusion (attention, fused resblock, trunk,
+conditioning) and the DPM-Solver++(2M) sampler (ttts_tpu_torch against
+ttts_tpu) on the CPU, in f32.
+
+The attention output projections are zero-initialised, so every attention
+block would add exactly 0 and hide a wrong attention: these tests give them
+non-zero weights. Tolerances: 1e-4 on activations, 1e-5 on the kernels'
+plain versions against the Pallas kernels in interpret mode, 1e-3 on the
+sampled mel (30 solver steps of f32 drift)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_api import TINY
+from ttts_tpu.diffusion.dpm import cfg_eps_fn as jcfg
+from ttts_tpu.diffusion.dpm import dpm_solver_pp_2m_sample as jdpm
+from ttts_tpu.models import diffusion_net as jdn
+from ttts_tpu.models import porting as jporting
+from ttts_tpu.ops.pallas.attention import flash_attention as jflash
+from ttts_tpu.ops.pallas.resblock import fused_scale_shift_resblock as jres_kernel
+from ttts_tpu.ops.pallas.resblock import resblock_reference
+from ttts_tpu_torch import porting
+from ttts_tpu_torch.diffusion import cfg_eps_fn, dpm_solver_pp_2m_sample
+from ttts_tpu_torch.models import diffusion_net as tdn
+from ttts_tpu_torch.ops.cuda.attention import flash_attention
+from ttts_tpu_torch.ops.cuda.resblock import fused_scale_shift_resblock
+
+ATOL = 1e-4
+C = TINY.diffusion_net
+T = 32  # trunk length (mel frames)
+
+
+def _nonzero_proj(params, key):
+    """Random weights for every AttentionBlock `proj` (zero at init)."""
+    flat = jax.tree_util.tree_flatten_with_path(params)[0]
+    out = params
+    for i, (path, leaf) in enumerate(flat):
+        names = [getattr(p, "key", None) for p in path]
+        if len(names) >= 2 and names[-2] == "proj":
+            new = 0.1 * jax.random.normal(jax.random.fold_in(key, i), leaf.shape)
+            out = _set(out, names, new)
+    return out
+
+
+def _set(tree, names, value):
+    if len(names) == 1:
+        return {**tree, names[0]: value}
+    return {**tree, names[0]: _set(tree[names[0]], names[1:], value)}
+
+
+@pytest.fixture(scope="module")
+def net():
+    model = jdn.AA_diffusion(C)
+    mel = jnp.zeros((1, T, C.in_channels))
+    variables = jax.jit(model.init)(jax.random.key(0), mel, jnp.asarray([1.0]),
+                                    jnp.zeros((1, 16, C.in_latent_channels)), mel)
+    variables = {"params": _nonzero_proj(variables["params"], jax.random.key(5))}
+    port = tdn.AA_diffusion(C).eval()
+    port.load_state_dict({k: torch.from_numpy(v) for k, v in
+                          porting.aa_diffusion_state_dict(variables).items()})
+    return model, variables, port
+
+
+def _rand(seed, *shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def test_attention_block_with_nonzero_proj(net):
+    """Module level: torch AttentionBlock (strip bias, plain attention) vs the
+    flax block on its einsum path."""
+    model, variables, port = net
+    x = _rand(0, 2, 40, C.model_channels)
+    blk = jdn.AttentionBlock(C.model_channels, C.num_heads)
+    p = {"params": variables["params"]["latent_conditioner_1"]}
+    want = blk.apply(p, jnp.asarray(x))
+    with torch.no_grad():
+        got = port.latent_conditioner[1](torch.from_numpy(x))
+    assert np.abs(np.asarray(want) - x).max() > 1e-2  # the attention really adds
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,t,h,d", [(2, 128, 4, 16), (1, 256, 2, 32)])
+def test_flash_attention_plain_matches_pallas(b, t, h, d):
+    q, k, v = (_rand(i, b, t, h, d) for i in range(3))
+    strip = _rand(3, h, 2 * t - 1)
+    want = jflash(*map(jnp.asarray, (q, k, v)), strip=jnp.asarray(strip),
+                  scale=d ** -0.5, interpret=True)
+    got = flash_attention(*map(torch.from_numpy, (q, k, v, strip)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+def test_resblock_plain_matches_reference_and_pallas():
+    b, t, c = 2, 16, 128
+    args = (_rand(0, b, t, c), 1 + _rand(1, c, scale=0.1), _rand(2, c, scale=0.1),
+            _rand(3, c, c, scale=c ** -0.5), _rand(4, c, scale=0.1),
+            1 + _rand(5, b, c, scale=0.1), _rand(6, b, c, scale=0.1),
+            _rand(7, 3, c, c, scale=(3 * c) ** -0.5), _rand(8, c, scale=0.1))
+    ref = np.asarray(resblock_reference(*map(jnp.asarray, args), groups=32))
+    ker = np.asarray(jres_kernel(*map(jnp.asarray, args), groups=32, interpret=True))
+    got = fused_scale_shift_resblock(*map(torch.from_numpy, args), groups=32).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, ker, atol=1e-5, rtol=0)
+
+
+def _trunk_jax(model, variables, x, ts, cond):
+    biases = model.apply(variables, x.shape[1], x.shape[0], method=model.rel_biases)
+    return model.apply(variables, x, ts, cond, rel_biases=biases, method=model.trunk)
+
+
+def test_timestep_independent_and_trunk(net):
+    model, variables, port = net
+    latent = _rand(1, 2, 9, C.in_latent_channels)
+    refer = _rand(2, 2, 20, C.in_channels)
+    want_cond = model.apply(variables, jnp.asarray(latent), jnp.asarray(refer), T,
+                            method=model.timestep_independent)
+    x = _rand(3, 2, T, C.in_channels)
+    ts = np.asarray([10.0, 937.5], np.float32)
+    want = _trunk_jax(model, variables, jnp.asarray(x), jnp.asarray(ts), want_cond)
+    with torch.no_grad():
+        cond = port.timestep_independent(torch.from_numpy(latent), torch.from_numpy(refer), T)
+        got = port.trunk(torch.from_numpy(x), torch.from_numpy(ts), cond)
+    np.testing.assert_allclose(cond.numpy(), np.asarray(want_cond), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+def test_dpm_sampler_with_injected_noise(net):
+    model, variables, port = net
+    cond = _rand(4, 1, T, C.model_channels)
+    noise = _rand(5, 1, T, C.in_channels)
+    uncond = np.tile(np.asarray(variables["params"]["unconditioned_embedding"]), (1, T, 1))
+    biases = model.apply(variables, T, 2, method=model.rel_biases)
+    jtrunk = lambda x2, t2, e2: model.apply(  # noqa: E731
+        variables, x2, t2, e2, rel_biases=biases, method=model.trunk)
+    want = jdpm(jcfg(jtrunk, jnp.asarray(cond), jnp.asarray(uncond), 2.0),
+                jnp.asarray(noise), steps=30)
+    with torch.no_grad():
+        strips = port.rel_biases(T)
+        eps = cfg_eps_fn(lambda x2, t2, e2: port.trunk(x2, t2, e2, strips),
+                         torch.from_numpy(cond), port.unconditioned(1, T), 2.0)
+        got = dpm_solver_pp_2m_sample(eps, torch.from_numpy(noise), steps=30)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3, rtol=0)
+
+
+def test_mel_normalisation_and_interp():
+    mel = _rand(6, 1, 7, 100, scale=4.0)
+    np.testing.assert_allclose(tdn.normalize_tacotron_mel(torch.from_numpy(mel)).numpy(),
+                               np.asarray(jdn.normalize_tacotron_mel(jnp.asarray(mel))),
+                               atol=1e-7, rtol=0)
+    np.testing.assert_array_equal(tdn.nearest_interp(torch.from_numpy(mel), 30).numpy(),
+                                  np.asarray(jdn._nearest_interp(jnp.asarray(mel), 30)))
+
+
+def test_converter_round_trip(net):
+    _, variables, port = net
+    sd = porting.aa_diffusion_state_dict(variables)
+    assert set(sd) == set(port.state_dict())
+    back = jporting.port_aa_diffusion_state(sd, C.num_layers)
+    want = jax.tree_util.tree_map(np.asarray, variables["params"])
+    jax.tree_util.tree_map(np.testing.assert_array_equal, back, want)

@@ -1,0 +1,166 @@
+"""PyTorch port parity: UnifiedVoice prefill / decode / latent, the sampling
+warpers, the decode-attention plain version and the generation loop
+(ttts_tpu_torch against ttts_tpu) on the CPU, in f32.
+
+Tolerances: logits and latents within 1e-4 (f32, summation order only);
+warper keep-masks equal; tokens identical when the port is fed JAX's own
+Gumbel draws (jax.random.categorical is argmax(logits + gumbel))."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from test_api import TINY
+from ttts_tpu.models import gpt as jgpt
+from ttts_tpu.models import porting as jporting
+from ttts_tpu.models import sampling as jsamp
+from ttts_tpu.ops.pallas import decode_attention as jdec
+from ttts_tpu_torch import porting
+from ttts_tpu_torch.models import sampling as tsamp
+from ttts_tpu_torch.models.gpt import UnifiedVoice, inference_speech
+from ttts_tpu_torch.ops.cuda.decode_attention import decode_attention
+
+ATOL = 1e-4
+C = TINY.gpt
+
+
+@pytest.fixture(scope="module")
+def gpt():
+    model = jgpt.UnifiedVoice(C)
+    variables = jax.jit(model.init)(jax.random.key(0), jnp.zeros((1, 8), jnp.int32),
+                                    jnp.asarray([8]), jnp.zeros((1, 16), jnp.int32),
+                                    jnp.asarray([16 * 1024]))
+    port = UnifiedVoice(C).eval()
+    port.load_state_dict({k: torch.from_numpy(v) for k, v in
+                          porting.unified_voice_state_dict(variables).items()})
+    return model, variables, port
+
+
+def _inputs(seed=0, b=2, lt=16, lp=16):
+    rng = np.random.default_rng(seed)
+    text = rng.integers(1, 200, (b, lt)).astype(np.int32)
+    prompt = rng.integers(0, 1024, (b, lp)).astype(np.int32)
+    return text, prompt
+
+
+def test_prefill_and_teacher_forced_decode_logits(gpt):
+    model, variables, port = gpt
+    text, prompt = _inputs()
+    prefix = text.shape[1] + 2 + prompt.shape[1] + 1
+    max_len = prefix + 8
+    cache, logits, p, mel_off = model.apply(variables, jnp.asarray(text), jnp.asarray(prompt),
+                                            max_len, method=model.prefill)
+    with torch.no_grad():
+        tcache, tlogits, tp, tmel = port.prefill(torch.from_numpy(text).long(),
+                                                 torch.from_numpy(prompt).long(), max_len)
+        assert (tp, tmel) == (p, mel_off) == (prefix, prompt.shape[1] + 1)
+        np.testing.assert_allclose(tlogits.numpy(), np.asarray(logits), atol=ATOL, rtol=0)
+        toks = np.random.default_rng(1).integers(0, 1024, (6, text.shape[0]))
+        for i, tok in enumerate(toks):
+            logits, cache = model.apply(variables, jnp.asarray(tok, jnp.int32), cache,
+                                        prefix + i, mel_off + i, max_len,
+                                        method=model.decode_one)
+            tlogits = port.decode_one(torch.from_numpy(tok).long(), tcache, prefix + i,
+                                      mel_off + i)
+            np.testing.assert_allclose(tlogits.numpy(), np.asarray(logits), atol=ATOL,
+                                       rtol=0, err_msg=f"step {i}")
+
+
+def test_return_latent(gpt):
+    model, variables, port = gpt
+    text, _ = _inputs(2)
+    codes = np.random.default_rng(3).integers(0, 1024, (2, 24)).astype(np.int32)
+    wav_len = np.asarray([20 * 1024, 13 * 1024])
+    want = model.apply(variables, jnp.asarray(text), jnp.asarray([16, 16]),
+                       jnp.asarray(codes), jnp.asarray(wav_len), return_latent=True)
+    with torch.no_grad():
+        got = port(torch.from_numpy(text).long(), torch.tensor([16, 16]),
+                   torch.from_numpy(codes).long(), torch.from_numpy(wav_len),
+                   return_latent=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+@pytest.fixture
+def interpret_decode(monkeypatch):
+    orig = pl.pallas_call
+    monkeypatch.setattr(jdec.pl, "pallas_call",
+                        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}))
+    jdec.fused_decode_attention.clear_cache()
+    yield
+    jdec.fused_decode_attention.clear_cache()
+
+
+def _unpack(x, h, b):
+    """packed (..., dk, H*B) head-major → (B, H, ..., dk)."""
+    lead = x.shape[:-2]
+    y = x.reshape(*lead, x.shape[-2], h, b)
+    return np.moveaxis(np.moveaxis(y, -1, 0), -1, 1).copy()
+
+
+@pytest.mark.parametrize("pos", [0, 63, 64, 200, 255])
+def test_decode_attention_plain_matches_reference_and_kernel(interpret_decode, pos):
+    rng = np.random.default_rng(pos)
+    ml, dk, h, b = 256, 16, 8, 16
+    q, uk, uv = (rng.standard_normal(s).astype(np.float32)
+                 for s in ((dk, h * b), (1, dk, h * b), (1, dk, h * b)))
+    kc, vc = (rng.standard_normal((ml, dk, h * b)).astype(np.float32) for _ in range(2))
+    ref, kr, vr = jdec.decode_attention_reference(*map(jnp.asarray, (q, uk, uv, kc, vc)), pos)
+    ker, _, _ = jdec.fused_decode_attention(*map(jnp.asarray, (q, uk, uv, kc, vc)), pos,
+                                            blk=64)
+    tk, tv = torch.from_numpy(_unpack(kc, h, b)), torch.from_numpy(_unpack(vc, h, b))
+    got = decode_attention(torch.from_numpy(_unpack(q, h, b)),
+                           torch.from_numpy(_unpack(uk[0], h, b)),
+                           torch.from_numpy(_unpack(uv[0], h, b)), tk, tv, pos)
+    np.testing.assert_allclose(got.numpy(), _unpack(np.asarray(ref), h, b), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), _unpack(np.asarray(ker), h, b), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(tk.numpy(), _unpack(np.asarray(kr), h, b))
+    np.testing.assert_array_equal(tv.numpy(), _unpack(np.asarray(vr), h, b))
+
+
+@pytest.mark.parametrize("top_k,top_p", [(0, 0.8), (50, 0.9), (0, 1.0)])
+def test_warper_keep_masks_equal(top_k, top_p):
+    rng = np.random.default_rng(top_k)
+    logits = (rng.standard_normal((4, 1026)) * 3).astype(np.float32)
+    logits[:, 7] = logits[:, 9]  # a tie at whatever rank it lands
+    counts = rng.integers(0, 2, (4, 1026)).astype(np.int32)
+    params = dict(temperature=0.8, top_p=top_p, top_k=top_k, repetition_penalty=2.0)
+    jl = jnp.asarray(logits)
+    jl = jsamp.apply_repetition_penalty(jl, jnp.asarray(counts), 2.0) / 0.8
+    want = np.asarray(jsamp.apply_top_p(jsamp.apply_top_k(jl, top_k), top_p))
+    got = tsamp.warp_logits(torch.from_numpy(logits), torch.from_numpy(counts),
+                            tsamp.SamplingParams(**params)).numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    keep = np.isfinite(want)
+    np.testing.assert_allclose(got[keep], want[keep], atol=1e-6, rtol=0)
+
+
+def test_generation_with_jax_draws_is_identical(gpt):
+    model, variables, port = gpt
+    text, prompt = _inputs(5, b=2)
+    max_gen = 24
+    sampling = jsamp.SamplingParams(top_p=0.8, temperature=0.8, repetition_penalty=2.0)
+    key = jax.random.key(11)
+    want = np.asarray(jgpt.inference_speech(model, variables, jnp.asarray(text),
+                                            jnp.asarray(prompt), key, max_gen, sampling))
+    gumbel = np.stack([np.asarray(jax.random.gumbel(k, (2, C.number_mel_codes)))
+                       for k in jax.random.split(key, max_gen)])
+    with torch.no_grad():
+        got = inference_speech(port, torch.from_numpy(text).long(),
+                               torch.from_numpy(prompt).long(), max_gen,
+                               tsamp.SamplingParams(top_p=0.8, temperature=0.8,
+                                                    repetition_penalty=2.0),
+                               torch.from_numpy(gumbel))
+    assert (want[:, :4] != C.stop_mel_token).all()  # real draws, not an instant stop
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_converter_round_trip(gpt):
+    _, variables, port = gpt
+    sd = porting.unified_voice_state_dict(variables)
+    assert set(sd) == set(port.state_dict())
+    back = jporting.port_unified_voice_state(sd, C.layers)
+    want = jax.tree_util.tree_map(np.asarray, variables["params"])
+    jax.tree_util.tree_map(np.testing.assert_array_equal, back, want)

@@ -1,0 +1,37 @@
+"""The PyTorch port runs where JAX is not installed: no file of
+ttts_tpu_torch may import jax, flax or optax, nor any ttts_tpu module but the
+JAX-free ttts_tpu.config and ttts_tpu.text."""
+
+import ast
+import pathlib
+
+import pytest
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "ttts_tpu_torch"
+ALLOWED = ("ttts_tpu.config", "ttts_tpu.text")
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            if node.module == "ttts_tpu":
+                yield from (f"ttts_tpu.{a.name}" for a in node.names)
+
+
+FILES = sorted(PKG.rglob("*.py"))
+
+
+def test_package_has_files():
+    assert len(FILES) > 10
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(PKG)))
+def test_no_jax_imports(path):
+    for mod in _imports(path):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "flax", "optax"), f"{path.name}: {mod}"
+        if root == "ttts_tpu":
+            assert mod.startswith(ALLOWED), f"{path.name} imports {mod}"

@@ -1,0 +1,103 @@
+"""PyTorch port parity of the whole serving slice: TextToSpeech.tts at
+preset "ultra_fast" on the TINY config, JAX weights carried into the port
+through ttts_tpu_torch.porting, and JAX's own random draws injected (the
+decode loop's Gumbel noise per api.py:487,499 / gpt.py:540, and the
+diffusion start noise per api.py:470-472).
+
+Contract: prompt codes and generated codes equal; waveform within 5e-4, the
+band of the JAX golden snapshot (tests/test_api.py:142-144)."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from test_api import TINY
+from ttts_tpu.api import TextToSpeech as JaxTTS
+from ttts_tpu.models.quantize import RVQState
+from ttts_tpu_torch import porting
+from ttts_tpu_torch.api import TextToSpeech, code_bucket
+
+TEXT = "ni3 hao3 shi4 jie4"
+MAX_GEN = 32
+SEED = 0
+
+
+class JaxDraws:
+    """The draws JAX's tts makes from jax.random.key(seed)."""
+
+    def __init__(self, seed):
+        self.k1, self.k2 = jax.random.split(jax.random.key(seed))
+
+    def gumbel(self, shape):
+        steps, b, v = shape
+        return torch.from_numpy(np.stack([np.asarray(jax.random.gumbel(k, (b, v)))
+                                          for k in jax.random.split(self.k1, steps)]))
+
+    def normal(self, shape):
+        return torch.from_numpy(np.array(jax.random.normal(self.k2, shape)))
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jtts = JaxTTS(TINY, seed=0, init_stages=("codec", "gpt", "diffusion", "vocos"))
+    codec = dict(jtts.params["codec"])
+    st = codec["codebook"]["quantizer"]["state"]
+    embed = 0.3 * jax.random.normal(jax.random.key(9), st.embed.shape)
+    codec["codebook"] = {"quantizer": {"state": RVQState(
+        embed=embed, embed_avg=embed, cluster_size=st.cluster_size, inited=st.inited)}}
+    jtts.set_params("codec", codec)
+    tts = TextToSpeech(TINY, seed=1)
+    for stage, to_state_dict in porting.STATE_DICT_FNS.items():
+        tts.set_params(stage, to_state_dict(jtts.params[stage]))
+    return jtts, tts
+
+
+@pytest.fixture(scope="module")
+def voice():
+    rng = np.random.default_rng(0)
+    t = np.arange(44100) / 44100
+    return (0.3 * np.sin(2 * np.pi * 180 * t) + 0.05 * rng.standard_normal(t.size)
+            ).astype(np.float32)
+
+
+def test_prompt_codes_equal(pair, voice):
+    jtts, tts = pair
+    want_codes, want_mel = jtts.get_conditioning(voice, 44100)
+    codes, mel = tts.get_conditioning(voice, 44100)
+    assert len(np.unique(np.asarray(want_codes))) > 1
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(want_codes))
+    # compared as linear magnitudes: in the near-silent bins above the
+    # resampler's cutoff, the log amplifies f32 FFT rounding to ~1e-2
+    np.testing.assert_allclose(np.exp(mel.numpy()), np.exp(np.asarray(want_mel)),
+                               atol=1e-4, rtol=0)
+
+
+def test_tts_matches_jax(pair, voice):
+    jtts, tts = pair
+    want = jtts.tts(TEXT, voice, 44100, preset="ultra_fast", max_generate_length=MAX_GEN,
+                    seed=SEED)
+    # the JAX codes tts drew: replay its decode with the same key split
+    ids = np.asarray(jtts.tok.encode(TEXT), np.int32)
+    text_ids = np.pad(ids, (0, -len(ids) % 16))[None]
+    prompt, _ = jtts.get_conditioning(voice, 44100)
+    prompt = np.pad(np.asarray(prompt), ((0, 0), (0, -prompt.shape[1] % 16)))
+    k1, _ = jax.random.split(jax.random.key(SEED))
+    jcodes = np.asarray(jtts._gpt_sample(text_ids, prompt, k1, MAX_GEN, 1))[0]
+    stops = np.where(jcodes == TINY.gpt.stop_mel_token)[0]
+    code_len = max(int(stops[0]) if len(stops) else MAX_GEN, 1)
+
+    got = tts.tts(TEXT, voice, 44100, preset="ultra_fast", max_generate_length=MAX_GEN,
+                  draws=JaxDraws(SEED))
+    np.testing.assert_array_equal(tts.last_codes, jcodes[:code_len])
+    hop = TINY.vocos.hop_length
+    assert got.shape == want.shape == (min(code_len * 4, code_bucket(code_len, MAX_GEN) * 4 - 1)
+                                       * hop,)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=0)
+
+
+def test_other_presets_raise(pair, voice):
+    _, tts = pair
+    with pytest.raises(NotImplementedError, match="CLVP"):
+        tts.tts(TEXT, voice, 44100, preset="fast", max_generate_length=4)

@@ -1,0 +1,48 @@
+// Shared helpers for the hand-written Hopper kernels of ttts_tpu_torch.
+//
+// Every kernel file exposes plain C entry points (loaded with ctypes by
+// ttts_tpu_torch/ops/cuda/_build.py). Each entry point launches on the
+// caller's stream, allocates nothing, and returns cudaGetLastError() so the
+// Python wrapper can raise on a refused launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Sum over the whole block; every thread gets the result. `red` needs one
+// float per warp. Safe to call repeatedly (syncs before reusing `red`).
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < nwarps; ++w) s += red[w];
+  return s;
+}
+
+__device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
+
+#define TTTS_STREAM(s) (reinterpret_cast<cudaStream_t>(s))

@@ -1,0 +1,80 @@
+"""Fused scale-shift ResBlock of the diffusion trunk.
+
+Kernel: ttts_tpu_torch/csrc/resblock.cu, replacing ttts_tpu/ops/pallas/
+resblock.py (fused_scale_shift_resblock):
+    x + conv3(SiLU(GN(Dense(SiLU(GN(x)*g1 + b1)))*a2 + b2)) + bc3
+with f32 GroupNorm statistics and matmul operands in x's dtype (f32 sums).
+The TPU's fifth kernel, fused_gn_qkv, is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ttts_tpu_torch.ops.cuda import _build
+
+_BN = 128  # RB_BN in resblock.cu: C must be a multiple of it
+_GN_ROWS = 128  # GN_ROWS in resblock.cu
+
+
+def _gn(h: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
+    b, t, c = h.shape
+    g = h.reshape(b, t, groups, c // groups)
+    mean = g.mean(dim=(1, 3), keepdim=True)
+    var = g.var(dim=(1, 3), keepdim=True, unbiased=False)
+    return ((g - mean) * torch.rsqrt(var + eps)).reshape(b, t, c)
+
+
+def fused_scale_shift_resblock_plain(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
+                                     groups: int = 32, eps: float = 1e-5):
+    """x (B, T, C); g1, b1, bd1, bc3 (C,); w1 (C, C) as (in, out); a2, b2
+    (B, C) — the combined GN_1 x FiLM affine; w3 (3, C, C) as (tap, in, out).
+    (ttts_tpu resblock_reference.)"""
+    f32, dt = torch.float32, x.dtype
+    xf = x.float()
+    h = torch.nn.functional.silu(_gn(xf, groups, eps) * g1.float() + b1.float())
+    h = h.to(dt).float() @ w1.to(dt).float() + bd1.float()
+    h = _gn(h, groups, eps) * a2.float()[:, None] + b2.float()[:, None]
+    hb = torch.nn.functional.silu(h).to(dt).float()
+    w3c = w3.to(dt).float()
+    pad = torch.zeros_like(hb[:, :1])
+    y = hb @ w3c[1]
+    y = y + torch.cat([pad, hb[:, :-1]], dim=1) @ w3c[0]
+    y = y + torch.cat([hb[:, 1:], pad], dim=1) @ w3c[2]
+    return (xf + y + bc3.to(f32)).to(dt)
+
+
+def fused_scale_shift_resblock(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
+                               groups: int = 32, eps: float = 1e-5):
+    """See fused_scale_shift_resblock_plain. On CUDA x, w1 and w3 are bf16,
+    C is a multiple of 128 (at most 1024) and groups at most 64."""
+    if x.device.type == "cpu":
+        return fused_scale_shift_resblock_plain(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
+                                                groups, eps)
+    args = (g1, b1, w1, bd1, a2, b2, w3, bc3)
+    if x.device.type != "cuda" or any(a.device != x.device for a in args):
+        raise ValueError("fused_scale_shift_resblock: all tensors must be on one CUDA device")
+    if x.dtype != torch.bfloat16 or w1.dtype != x.dtype or w3.dtype != x.dtype:
+        raise TypeError("fused_scale_shift_resblock: the kernel takes bfloat16 x, w1, w3")
+    b, t, c = x.shape
+    if (c % _BN or c > 1024 or c % groups or groups > 64 or w1.shape != (c, c)
+            or w3.shape != (3, c, c) or a2.shape != (b, c) or b2.shape != (b, c)):
+        raise ValueError(f"fused_scale_shift_resblock: unsupported shapes x {tuple(x.shape)}, "
+                         f"groups {groups}")
+    vec = lambda v: v.float().contiguous()  # noqa: E731
+    x, w1, w3 = x.contiguous(), w1.contiguous(), w3.contiguous()
+    g1, b1, bd1, bc3, a2, b2 = map(vec, (g1, b1, bd1, bc3, a2, b2))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    h = torch.empty((b, t, c), **f32)
+    # per (group, 128-row chunk) GroupNorm partials (mean, M2) of x and of h
+    parts = torch.empty((2, b, groups, -(-t // _GN_ROWS), 2), **f32)
+    out = torch.empty_like(x)
+    _build.launch("ttts_resblock", x.data_ptr(), g1.data_ptr(), b1.data_ptr(),
+                  w1.data_ptr(), bd1.data_ptr(), a2.data_ptr(), b2.data_ptr(),
+                  w3.data_ptr(), bc3.data_ptr(), out.data_ptr(), h.data_ptr(),
+                  parts[0].data_ptr(), parts[1].data_ptr(), b, t, c, groups, eps)
+    fused_scale_shift_resblock.launches += 1
+    return out
+
+
+fused_scale_shift_resblock.launches = 0

@@ -1,0 +1,272 @@
+"""Weight carry-over from the JAX package: ttts_tpu params → this package's
+state dicts (numpy arrays under the reference's torch key names).
+
+Each function is the inverse of its counterpart in ttts_tpu/models/porting.py
+(or models/vocos.py for Vocos), which map a reference torch state dict onto
+flax params: feeding the state dict produced here back through that function
+returns the JAX params. Inputs are the JAX package's variable trees (nested
+dicts of arrays; jax arrays convert through np.asarray, so no JAX import is
+needed here).
+
+Layouts: flax Conv kernels (k, in, out) → torch (out, in, k); flax Dense
+(in, out) → torch Linear (out, in); GPT-2 Conv1D weights stay (in, out);
+flax WeightNorm (kernel v, scale g) → (weight_v, weight_g).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+StateDict = Dict[str, np.ndarray]
+
+
+def _a(x) -> np.ndarray:
+    return np.array(x, dtype=np.float32)  # a writable copy
+
+
+def _bias(sd: StateDict, p: str, tree) -> None:
+    if "bias" in tree:
+        sd[p + ".bias"] = _a(tree["bias"])
+
+
+def _conv(sd: StateDict, p: str, tree) -> None:
+    """blocks.Conv1d subtree {Conv_0, [WeightNorm_0]} → torch conv at p."""
+    inner = tree["Conv_0"]
+    v = _a(inner["kernel"]).transpose(2, 1, 0)
+    if "WeightNorm_0" in tree:
+        g = _a(tree["WeightNorm_0"]["Conv_0/kernel/scale"])
+        sd[p + ".weight_v"] = v
+        sd[p + ".weight_g"] = g.reshape(-1, 1, 1)
+    else:
+        sd[p + ".weight"] = v
+    _bias(sd, p, inner)
+
+
+def _conv_flax(sd: StateDict, p: str, tree) -> None:
+    """bare flax nn.Conv {kernel, bias} → torch Conv1d."""
+    sd[p + ".weight"] = _a(tree["kernel"]).transpose(2, 1, 0)
+    _bias(sd, p, tree)
+
+
+def _dense(sd: StateDict, p: str, tree) -> None:
+    """flax Dense → torch nn.Linear."""
+    sd[p + ".weight"] = _a(tree["kernel"]).T
+    _bias(sd, p, tree)
+
+
+def _dense_as_conv1x1(sd: StateDict, p: str, tree) -> None:
+    """flax Dense → torch 1x1 Conv1d (out, in, 1)."""
+    sd[p + ".weight"] = _a(tree["kernel"]).T[:, :, None]
+    _bias(sd, p, tree)
+
+
+def _conv1x1_as_linear(sd: StateDict, p: str, tree) -> None:
+    """1x1 blocks.Conv1d (kernel (1, in, out)) → torch nn.Linear."""
+    sd[p + ".weight"] = _a(tree["Conv_0"]["kernel"])[0].T
+    _bias(sd, p, tree["Conv_0"])
+
+
+def _norm(sd: StateDict, p: str, tree) -> None:
+    """flax LayerNorm / GroupNorm {scale, bias} → torch {weight, bias}."""
+    sd[p + ".weight"] = _a(tree["scale"])
+    sd[p + ".bias"] = _a(tree["bias"])
+
+
+def _count(tree, prefix: str) -> int:
+    return sum(1 for k in tree if k.startswith(prefix))
+
+
+# --------------------------------------------------------------------- codec
+
+
+def _wn(sd: StateDict, p: str, tree) -> None:
+    """blocks.WN: Conv1d_0 = cond_layer, then in_layers / res_skip_layers."""
+    n = _count(tree, "Conv1d_")
+    base = n % 2  # cond_layer present → odd count
+    if base:
+        _conv(sd, p + ".cond_layer", tree["Conv1d_0"])
+    for i in range((n - base) // 2):
+        _conv(sd, f"{p}.in_layers.{i}", tree[f"Conv1d_{base + 2 * i}"])
+        _conv(sd, f"{p}.res_skip_layers.{i}", tree[f"Conv1d_{base + 2 * i + 1}"])
+
+
+def _resblock1(sd: StateDict, p: str, tree) -> None:
+    for j in range(_count(tree, "Conv1d_") // 2):
+        _conv(sd, f"{p}.convs1.{j}", tree[f"Conv1d_{2 * j}"])
+        _conv(sd, f"{p}.convs2.{j}", tree[f"Conv1d_{2 * j + 1}"])
+
+
+def _mel_style_encoder(sd: StateDict, p: str, tree) -> None:
+    _dense(sd, p + ".spectral.0.fc", tree["Dense_0"])
+    _dense(sd, p + ".spectral.3.fc", tree["Dense_1"])
+    _conv(sd, p + ".temporal.0.conv1.conv", tree["Conv1dGLU_0"]["Conv1d_0"])
+    _conv(sd, p + ".temporal.1.conv1.conv", tree["Conv1dGLU_1"]["Conv1d_0"])
+    att = tree["RelPosMultiHeadAttention_0"]
+    for i, name in enumerate(("w_qs", "w_ks", "w_vs", "fc")):
+        _conv1x1_as_linear(sd, f"{p}.slf_attn.{name}", att[f"Conv1d_{i}"])
+    _dense(sd, p + ".fc.fc", tree["Dense_2"])
+
+
+def _posterior_audio_encoder(sd: StateDict, p: str, tree) -> None:
+    n_down = _count(tree, "Conv1d_") - 4  # + down_pre, conv_post, pre, proj
+    n_rb = _count(tree, "ResBlock1_") // n_down
+    _conv(sd, p + ".down_pre", tree["Conv1d_0"])
+    for i in range(n_down):
+        _conv(sd, f"{p}.downs.{i}", tree[f"Conv1d_{i + 1}"])
+        for j in range(n_rb):
+            k = i * n_rb + j
+            _resblock1(sd, f"{p}.resblocks.{k}", tree[f"ResBlock1_{k}"])
+    snake = tree["AntiAliasedActivation_0"]["SnakeBeta_0"]
+    sd[p + ".activation_post.act.alpha"] = _a(snake["log_alpha"])
+    sd[p + ".activation_post.act.beta"] = _a(snake["log_beta"])
+    _conv(sd, p + ".conv_post", tree[f"Conv1d_{n_down + 1}"])
+    _conv(sd, p + ".pre", tree[f"Conv1d_{n_down + 2}"])
+    _wn(sd, p + ".enc", tree["WN_0"])
+    _conv(sd, p + ".proj", tree[f"Conv1d_{n_down + 3}"])
+
+
+def synthesizer_trn_state_dict(variables) -> StateDict:
+    """JAX SynthesizerTrn variables {'params', 'codebook'} → the state dict
+    of ttts_tpu_torch.models.vqvae.SynthesizerTrn (extract path: ref_enc,
+    enc_p, proj, quantizer). Inverse of port_synthesizer_trn_state."""
+    params = variables["params"]
+    sd: StateDict = {}
+    _mel_style_encoder(sd, "ref_enc", params["ref_enc"])
+    _posterior_audio_encoder(sd, "enc_p", params["enc_p"])
+    _conv(sd, "proj", params["proj"])
+    state = variables["codebook"]["quantizer"]["state"]
+    get = (lambda k: state[k]) if isinstance(state, dict) else (lambda k: getattr(state, k))
+    embed, embed_avg, size = _a(get("embed")), _a(get("embed_avg")), _a(get("cluster_size"))
+    inited = np.asarray(get("inited"), np.float32).reshape(1)
+    for i in range(embed.shape[0]):
+        cb = f"quantizer.vq.layers.{i}._codebook"
+        sd[cb + ".embed"] = embed[i]
+        sd[cb + ".embed_avg"] = embed_avg[i]
+        sd[cb + ".cluster_size"] = size[i]
+        sd[cb + ".inited"] = inited
+    return sd
+
+
+# ----------------------------------------------------------------------- gpt
+
+
+def unified_voice_state_dict(variables) -> StateDict:
+    """JAX UnifiedVoice variables → ttts_tpu_torch.models.gpt.UnifiedVoice
+    state dict. Inverse of port_unified_voice_state."""
+    p = variables["params"]
+    sd: StateDict = {
+        "text_embedding.weight": _a(p["text_embedding"]["embedding"]),
+        "mel_embedding.weight": _a(p["mel_embedding"]["embedding"]),
+        "text_pos_embedding.emb.weight": _a(p["text_pos_embedding"]),
+        "mel_pos_embedding.emb.weight": _a(p["mel_pos_embedding"]),
+    }
+    _norm(sd, "final_norm", p["final_norm"])
+    _dense(sd, "text_head", p["text_head"])
+    _dense(sd, "mel_head", p["mel_head"])
+    stack = p["gpt"]
+    for i in range(_count(stack, "GPT2Block_")):
+        blk, pre = stack[f"GPT2Block_{i}"], f"gpt.h.{i}"
+        _norm(sd, pre + ".ln_1", blk["LayerNorm_0"])
+        _norm(sd, pre + ".ln_2", blk["LayerNorm_1"])
+        for name, dense in (("attn.c_attn", "Dense_0"), ("attn.c_proj", "Dense_1"),
+                            ("mlp.c_fc", "Dense_2"), ("mlp.c_proj", "Dense_3")):
+            sd[f"{pre}.{name}.weight"] = _a(blk[dense]["kernel"])  # Conv1D: (in, out)
+            sd[f"{pre}.{name}.bias"] = _a(blk[dense]["bias"])
+    _norm(sd, "gpt.ln_f", stack["ln_f"])
+    return sd
+
+
+# ----------------------------------------------------------------- diffusion
+
+
+def _attn_block(sd: StateDict, p: str, tree) -> None:
+    _norm(sd, p + ".norm", tree["norm"]["GroupNorm_0"])
+    _dense_as_conv1x1(sd, p + ".qkv", tree["qkv"])
+    _dense_as_conv1x1(sd, p + ".proj_out", tree["proj"])
+    sd[p + ".relative_pos_embeddings.relative_attention_bias.weight"] = _a(
+        tree["relpos"]["table"]["embedding"])
+
+
+def _ss_resblock(sd: StateDict, p: str, tree) -> None:
+    _norm(sd, p + ".in_layers.0", tree["GroupNorm32_0"]["GroupNorm_0"])
+    _dense_as_conv1x1(sd, p + ".in_layers.2", tree["Dense_0"])
+    _dense(sd, p + ".emb_layers.1", tree["Dense_1"])
+    _norm(sd, p + ".out_layers.0", tree["GroupNorm32_1"]["GroupNorm_0"])
+    _conv_flax(sd, p + ".out_layers.3", tree["Conv_0"])
+
+
+def _diffusion_layer(sd: StateDict, p: str, tree) -> None:
+    _ss_resblock(sd, p + ".resblk", tree["resblk"])
+    _attn_block(sd, p + ".attn", tree["attn"])
+
+
+def _ref_encoder(sd: StateDict, p: str, tree) -> None:
+    sd[p + ".latents"] = _a(tree["latents"])
+    for i, name in enumerate(("conv_q", "conv_k", "conv_v", "conv_o")):
+        _dense_as_conv1x1(sd, f"{p}.cross_attention.{name}", tree[f"Dense_{i}"])
+    _conv_flax(sd, p + ".enc.0", tree["Conv_0"])
+    for i in range(_count(tree, "AttentionBlock_")):
+        _attn_block(sd, f"{p}.enc.{i + 1}", tree[f"AttentionBlock_{i}"])
+
+
+def aa_diffusion_state_dict(variables) -> StateDict:
+    """JAX AA_diffusion variables → ttts_tpu_torch.models.diffusion_net.
+    AA_diffusion state dict. Inverse of port_aa_diffusion_state."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _conv_flax(sd, "inp_block", p["inp_block"])
+    _dense(sd, "time_embed.0", p["time_embed_0"])
+    _dense(sd, "time_embed.2", p["time_embed_1"])
+    _norm(sd, "code_norm", p["code_norm"]["GroupNorm_0"])
+    _conv_flax(sd, "latent_conditioner.0", p["latent_conditioner_0"])
+    sd["unconditioned_embedding"] = _a(p["unconditioned_embedding"]).transpose(0, 2, 1)
+    _conv_flax(sd, "refer_enc.0", p["refer_conv"])
+    _ref_encoder(sd, "refer_enc.4", p["refer_pool"])
+    _dense_as_conv1x1(sd, "integrating_conv", p["integrating_conv"])
+    _norm(sd, "out.0", p["out_norm"]["GroupNorm_0"])
+    _conv_flax(sd, "out.2", p["out_conv"])
+    for i in range(3):
+        _attn_block(sd, f"latent_conditioner.{i + 1}", p[f"latent_conditioner_{i + 1}"])
+        _attn_block(sd, f"refer_enc.{i + 1}", p[f"refer_attn_{i}"])
+        _diffusion_layer(sd, f"conditioning_timestep_integrator.{i}",
+                         p[f"conditioning_timestep_integrator_{i}"])
+    for i in range(_count(p, "layers_")):
+        tree = p[f"layers_{i}"]
+        if "resblk" in tree:
+            _diffusion_layer(sd, f"layers.{i}", tree)
+        else:
+            _ss_resblock(sd, f"layers.{i}", tree)
+    return sd
+
+
+# --------------------------------------------------------------------- vocos
+
+
+def vocos_state_dict(variables) -> StateDict:
+    """JAX Vocos variables → ttts_tpu_torch.models.vocos.Vocos state dict.
+    Inverse of ttts_tpu.models.vocos.port_torch_state_dict."""
+    p = variables["params"]
+    bb = p["VocosBackbone_0"]
+    sd: StateDict = {}
+    _conv_flax(sd, "backbone.embed", bb["Conv_0"])
+    _norm(sd, "backbone.norm", bb["LayerNorm_0"])
+    for i in range(_count(bb, "ConvNeXtBlock_")):
+        blk, pre = bb[f"ConvNeXtBlock_{i}"], f"backbone.convnext.{i}"
+        _conv_flax(sd, pre + ".dwconv", blk["Conv_0"])
+        _norm(sd, pre + ".norm", blk["LayerNorm_0"])
+        _dense(sd, pre + ".pwconv1", blk["Dense_0"])
+        _dense(sd, pre + ".pwconv2", blk["Dense_1"])
+        sd[pre + ".gamma"] = _a(blk["gamma"])
+    _norm(sd, "backbone.final_layer_norm", bb["LayerNorm_1"])
+    _dense(sd, "head.out", p["ISTFTHead_0"]["Dense_0"])
+    return sd
+
+
+STATE_DICT_FNS = {
+    "codec": synthesizer_trn_state_dict,
+    "gpt": unified_voice_state_dict,
+    "diffusion": aa_diffusion_state_dict,
+    "vocos": vocos_state_dict,
+}

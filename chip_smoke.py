@@ -4,26 +4,35 @@
 
 Phases, one printed line each, any failure raising (non-zero exit):
   (a) the card (nvidia-smi name and power limit), torch and CUDA versions;
-  (b) build the hand-written kernels from ttts_tpu_torch/csrc with nvcc;
-  (c) each kernel against its plain PyTorch version at the serving path's
-      full-width shapes, in the working dtype: errors against the stated
-      tolerance (relative: see compare and the *_TOL constants), and the
-      median time of both from CUDA events;
+  (b) build the hand-written kernels from ttts_tpu_torch/csrc with nvcc (one
+      process per source, all started together);
+  (c) each kernel, and each attention mode, against its plain PyTorch
+      version at the serving path's full-width shapes, in the working dtype:
+      errors against the stated tolerance (relative: see compare and the
+      *_TOL constants), the median time of the kernel, the plain version and
+      the one PyTorch call that computes the same function where there is
+      one, and the kernel's bound (section 4 of PERF.md);
   (d) end to end: TextToSpeech(default_config(), device="cuda") on random
       seeded weights (attention output projections made non-zero, since they
       are zero-initialised and would hide a wrong attention kernel), a seeded
-      5 s 44.1 kHz synthetic voice and a pinyin text, `tts(...,
-      preset="ultra_fast", max_generate_length=400)` twice. Checks a finite
-      waveform of the length the code length implies, and that every kernel
-      was launched by the end-to-end calls;
+      5 s 44.1 kHz synthetic voice and pinyin texts: `tts(...)` at the
+      default preset "fast" twice, then at "ultra_fast" once, then
+      `tts_batch` of two texts at "fast", all with max_generate_length=400.
+      Checks finite waveforms of the lengths the code lengths imply, and that
+      every kernel and attention mode of the path was launched by these
+      calls. Then one trunk AttentionBlock with fused_gn off and on, the path
+      of the fused GroupNorm -> qkv kernel (no model sets it);
   (e) the card's path against the port's f32 CPU path (which tests/
       test_torch_*.py hold to the JAX package) at the same full width and
-      weights, on a small input, stage by stage from shared inputs: prompt
-      codes equal, GPT prefill + teacher-forced decode logits, and the
-      latent → diffusion (10 steps, shared noise) → Vocos tail, each within
-      a stated relative L2 error (the card runs the GPT and diffusion in bf16);
+      weights, on small inputs, stage by stage from shared inputs: prompt
+      codes equal, GPT prefill + teacher-forced decode logits, the CLVP
+      latents and similarities, and the latent → diffusion (10 steps, shared
+      noise) → Vocos tail, each within a stated relative error (the card runs
+      the GPT, CLVP and diffusion in bf16);
   (f) torch.profiler device time of each kernel and its plain version, and
-      the device's busy share of a steady tts call.
+      the device's busy share of a steady tts call at preset "fast";
+  (g) the limits of the phase-(c) checks this port added, each shown to fail
+      a copy of the kernels with one planted fault (FAULTS), built apart.
 The last two lines are the kernel table as JSON and then
 {"ok": true, "device": {...}}. Imports no JAX; needs a CUDA card.
 """
@@ -35,24 +44,36 @@ import math
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
 
+ATTN_SRC, ATTN_TPU = "ttts_tpu_torch/csrc/attention.cu", "ttts_tpu/ops/pallas/attention.py"
+RES_SRC, RES_TPU = "ttts_tpu_torch/csrc/resblock.cu", "ttts_tpu/ops/pallas/resblock.py"
 KERNELS = {
-    # name: (module, wrapper, source, replaced TPU kernel)
-    "vq_nearest": ("vq", "vq_nearest", "ttts_tpu_torch/csrc/vq.cu",
+    # name: (module, wrapper, attention mode, source, replaced TPU kernel)
+    "vq_nearest": ("vq", "vq_nearest", None, "ttts_tpu_torch/csrc/vq.cu",
                    "ttts_tpu/ops/pallas/vq.py:76"),
-    "decode_attention": ("decode_attention", "decode_attention",
+    "decode_attention": ("decode_attention", "decode_attention", None,
                          "ttts_tpu_torch/csrc/decode_attention.cu",
                          "ttts_tpu/ops/pallas/decode_attention.py:180"),
-    "flash_bias_attention": ("attention", "flash_attention",
-                             "ttts_tpu_torch/csrc/attention.cu",
-                             "ttts_tpu/ops/pallas/attention.py:169"),
-    "scale_shift_resblock": ("resblock", "fused_scale_shift_resblock",
-                             "ttts_tpu_torch/csrc/resblock.cu",
-                             "ttts_tpu/ops/pallas/resblock.py:142"),
+    "flash_attention_bias": ("attention", "flash_attention", "bias", ATTN_SRC,
+                             f"{ATTN_TPU}:169"),
+    "flash_attention_nobias": ("attention", "flash_attention", "nobias", ATTN_SRC,
+                               f"{ATTN_TPU}:182"),
+    "flash_attention_causal": ("attention", "flash_attention", "causal", ATTN_SRC,
+                               f"{ATTN_TPU}:72"),
+    "scale_shift_resblock": ("resblock", "fused_scale_shift_resblock", None, RES_SRC,
+                             f"{RES_TPU}:142"),
+    "gn_qkv": ("resblock", "fused_gn_qkv", None, RES_SRC, f"{RES_TPU}:243"),
 }
+# not on the serving path (no model sets AttentionBlock.fused_gn, as in the
+# JAX package): it launches in its own step of phase (d)
+OFF_PATH = ("gn_qkv",)
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA H100 datasheet, dense)
+PEAK_BF16, PEAK_F32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -62,8 +83,27 @@ def log(msg: str) -> None:
 def wrapper(name: str):
     import importlib
 
-    mod, fn, _, _ = KERNELS[name]
+    mod, fn, _, _, _ = KERNELS[name]
     return getattr(importlib.import_module(f"ttts_tpu_torch.ops.cuda.{mod}"), fn)
+
+
+def count(name: str) -> int:
+    mode = KERNELS[name][2]
+    return wrapper(name).launches[mode] if mode else wrapper(name).launches
+
+
+def counts() -> dict:
+    return {name: count(name) for name in KERNELS}
+
+
+def reset_counts() -> None:
+    for name, (_, _, mode, _, _) in KERNELS.items():
+        if mode:
+            launches = wrapper(name).launches
+            for m in launches:
+                launches[m] = 0
+        else:
+            wrapper(name).launches = 0
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -79,6 +119,13 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
+    """The least time the card could take: the larger of operations over the
+    peak rate for their type and bytes over the memory rate → (ms, by)."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 # ----------------------------------------------------------------- (a), (b)
@@ -117,11 +164,13 @@ def phase_build(verbose: bool = False) -> float:
 #              inputs, i.e. within the bf16 rounding of the output: correct
 #              at most -4e-8; the first 32-row chunk dropped, 0.32;
 #   attention: rel_l2 <= 5e-3 against the bf16 plain version (the kernel
-#              rounds P to bf16 before P.V): correct 1.9e-3 to 2.2e-3; the
-#              ragged-edge key mask removed, 0.16 at T=94;
-#   resblock:  excess <= 1e-3 against the bf16 plain version: correct
-#              1.6e-4 to 4.7e-4; the conv3 'SAME' padding applied before the
-#              activation, 2.5e-2.
+#              rounds P to bf16 before P.V), in every mode: correct 1.9e-3 to
+#              2.2e-3 (bias); the ragged-edge key mask removed, 0.16 at T=94;
+#              the causal mask off by one key, see PERF.md;
+#   resblock, gn_qkv: excess <= 1e-3 against the bf16 plain version:
+#              resblock correct 1.6e-4 to 4.7e-4, the conv3 'SAME' padding
+#              applied before the activation 2.5e-2; gn_qkv with the GN
+#              affine dropped, see PERF.md.
 DECODE_TOL, ATTN_TOL, RES_TOL = 1e-5, 5e-3, 1e-3
 BF16_STEP = 2.0 ** -7  # a bf16 rounding step, relative to the rounded value
 
@@ -138,14 +187,24 @@ def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
             "excess": float((err - BF16_STEP * want.abs()).max()) / scale}
 
 
-def _timed(rows, name, shape, m, metric, tol, run, run_plain):
+def _timed(rows, name, shape, m, metric, tol, run, run_plain, run_library, work):
+    """Check m[metric] <= tol (metric None: the caller checked), then time
+    kernel, plain version and library call (None: no single call), each a
+    call bound to this shape's inputs (phase (f) calls them again); `work` =
+    (operations, bytes[, peak]) of the function at this shape."""
     ms, pms = median_ms(run), median_ms(run_plain)
-    log(f"(c) {name} {shape}: max_abs_err {m['max_abs']:.3e}, rel_l2 {m['rel_l2']:.3e}, "
-        f"excess {m['excess']:.3e} (tol: {metric} <= {tol}) | kernel {ms:.4f} ms, "
-        f"plain {pms:.4f} ms")
+    lms = median_ms(run_library) if run_library else None
+    bms, by = bound(*work)
+    lib = f"{lms:.4f} ms" if lms is not None else "none"
+    err = (f"max_abs_err {m['max_abs']:.3e}, rel_l2 {m['rel_l2']:.3e}, excess "
+           f"{m['excess']:.3e} (tol: {metric} <= {tol})" if metric
+           else f"max_abs_err {m['max_abs']:.3e}")
+    log(f"(c) {name} {shape}: {err} | kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+        f"library {lib}, bound {bms:.4f} ms ({by})")
     rows.append({"name": name, "max_abs_err": m["max_abs"], "ms": ms, "plain_ms": pms,
-                 "run": run, "run_plain": run_plain})
-    if not m[metric] <= tol:
+                 "library_ms": lms, "bound_ms": bms, "bound_by": by, "run": run,
+                 "run_plain": run_plain, "run_library": run_library})
+    if metric and not m[metric] <= tol:
         raise AssertionError(f"{name} {shape}: {metric} {m[metric]:.3e} > {tol}")
 
 
@@ -171,18 +230,18 @@ def _check_vq(g, rows):
         if int(got[0]) != 3 or bad:
             raise AssertionError(f"vq N={n}: {bad} code mismatches beyond a 1e-5 "
                                  f"relative near-tie, tie pick {int(got[0])}")
-        ms, pms = median_ms(lambda: fn(x, cb)), median_ms(lambda: vq_nearest_plain(x, cb))
-        log(f"(c) vq_nearest N={n} bins=1024 D=192 f32: mismatches {int(mism.sum())} "
-            f"(near-ties {int((mism & near).sum())}, tolerance: mismatch only on "
-            f"a <=1e-5 relative distance tie) | kernel {ms:.4f} ms, plain {pms:.4f} ms")
-        rows.append({"name": "vq_nearest", "max_abs_err": float(diff.max()), "ms": ms,
-                     "plain_ms": pms, "run": lambda: fn(x, cb),
-                     "run_plain": lambda: vq_nearest_plain(x, cb)})
+        _timed(rows, "vq_nearest",
+               f"N={n} bins=1024 D=192 f32: mismatches {int(mism.sum())} (near-ties "
+               f"{int((mism & near).sum())}; tolerance: mismatch only on a <=1e-5 relative "
+               f"distance tie), distance gap", {"max_abs": float(diff.max())}, None, None,
+               partial(fn, x, cb), partial(vq_nearest_plain, x, cb), None,
+               (2 * n * 1024 * 192, (n * 192 + 1024 * 192 + n) * 4, PEAK_F32))
 
 
 def _check_decode(g, rows):
     from ttts_tpu_torch.ops.cuda.decode_attention import decode_attention_plain
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     fn = wrapper("decode_attention")
     h, dk, ml = 8, 64, 563
     for b in (1, 4):
@@ -200,31 +259,95 @@ def _check_decode(g, rows):
             decode_attention_plain(q, uk, uv, k3, v3, pos)
             if not (torch.equal(k1, k3) and torch.equal(v1, v3)):
                 raise AssertionError(f"decode B={b} pos={pos}: caches differ")
+            # library: SDPA at query length 1 over the rows <= pos, without
+            # the row write
+            q4, kl, vl = q[:, :, None], k1[:, :, : pos + 1], v1[:, :, : pos + 1]
+            bh = b * h * dk * 2
             _timed(rows, "decode_attention",
                    f"B={b} H={h} dk={dk} max_len={ml} pos={pos} bf16, caches equal",
                    compare(got, want), "excess", DECODE_TOL,
-                   lambda: fn(q, uk, uv, k1, v1, pos),
-                   lambda: decode_attention_plain(q, uk, uv, k3, v3, pos))
+                   partial(fn, q, uk, uv, k1, v1, pos),
+                   partial(decode_attention_plain, q, uk, uv, k3, v3, pos),
+                   partial(sdpa, q4, kl, vl),
+                   (4 * b * h * (pos + 1) * dk, 6 * bh + 2 * pos * bh))
+
+
+def _attention_work(b, t, h, d, bias, causal):
+    pairs = t * (t + 1) // 2 if causal else t * t
+    return 4 * b * h * pairs * d, 4 * b * t * h * d * 2 + (h * (2 * t - 1) * 4 if bias else 0)
 
 
 def _check_attention(g, rows):
-    from ttts_tpu_torch.ops.cuda.attention import flash_attention_plain
+    from ttts_tpu_torch.ops.cuda.attention import flash_attention_plain, toeplitz_bias
 
-    fn = wrapper("flash_bias_attention")
-    # the path's shapes, as strided q/k/v views of one fused qkv as the model
-    # passes them: the reference encoders at a 1 s prompt (T=94 refer_enc,
-    # T=126 RefEncoder: ragged, most of the last key tile masked) and at a
-    # 5 s prompt (T=501), and the trunk at two code buckets
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fn = wrapper("flash_attention_bias")
+    bf = torch.bfloat16
+    # bias mode at the path's shapes, as strided q/k/v views of one fused
+    # per-head [q; k; v] tensor as the diffusion net passes them: the
+    # reference encoders at a 1 s prompt (T=94 refer_enc, T=126 RefEncoder:
+    # ragged, most of the last key tile masked) and at a 5 s prompt (T=501),
+    # and the trunk at two code buckets
     for b, t, h, d in ((1, 94, 16, 32), (1, 126, 8, 64), (1, 501, 8, 64),
                        (2, 1024, 16, 32), (2, 1600, 16, 32)):
-        qkv = torch.randn(b, t, h, 3 * d, generator=g, device="cuda").to(torch.bfloat16)
+        qkv = torch.randn(b, t, h, 3 * d, generator=g, device="cuda").to(bf)
         q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
         strip = torch.randn(h, 2 * t - 1, generator=g, device="cuda")
         got, want = fn(q, k, v, strip), flash_attention_plain(q, k, v, strip)
         torch.cuda.synchronize()
-        _timed(rows, "flash_bias_attention", f"B={b} T={t} H={h} D={d} bf16",
+        # library: SDPA with the (H, T, T) bias built beforehand (not timed)
+        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+        mask = toeplitz_bias(strip, t).to(bf)[None]
+        _timed(rows, "flash_attention_bias", f"B={b} T={t} H={h} D={d} bf16",
                compare(got, want), "rel_l2", ATTN_TOL,
-               lambda: fn(q, k, v, strip), lambda: flash_attention_plain(q, k, v, strip))
+               partial(fn, q, k, v, strip), partial(flash_attention_plain, q, k, v, strip),
+               partial(sdpa, qt, kt, vt, attn_mask=mask),
+               _attention_work(b, t, h, d, True, False))
+    # no-bias mode at CLVP's shapes: separate (B, T, H, D) tensors, as the
+    # rotary embedding leaves them (text T=32, speech T=400)
+    for b, t, h, d in ((4, 32, 16, 64), (4, 400, 16, 64)):
+        q, k, v = (torch.randn(b, t, h, d, generator=g, device="cuda").to(bf) for _ in range(3))
+        got, want = fn(q, k, v), flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+        _timed(rows, "flash_attention_nobias", f"B={b} T={t} H={h} D={d} bf16",
+               compare(got, want), "rel_l2", ATTN_TOL,
+               partial(fn, q, k, v), partial(flash_attention_plain, q, k, v),
+               partial(sdpa, qt, kt, vt), _attention_work(b, t, h, d, False, False))
+    # causal mode at the GPT's shapes, as views of its fused [q; k; v]
+    # projection: a ragged T=100, the prefill of 4 candidates (T=163) and
+    # the return_latent forward of one winner (T=436)
+    # (bias + causal, which no caller uses, is checked at one shape before
+    # the path's causal rows)
+    strip = torch.randn(8, 2 * 163 - 1, generator=g, device="cuda")
+    q, k, v = (torch.randn(1, 163, 8, 64, generator=g, device="cuda").to(bf) for _ in range(3))
+    _timed(rows, "flash_attention_bias_causal", "B=1 T=163 H=8 D=64 bf16",
+           compare(fn(q, k, v, strip, causal=True),
+                   flash_attention_plain(q, k, v, strip, causal=True)), "rel_l2", ATTN_TOL,
+           partial(fn, q, k, v, strip, causal=True),
+           partial(flash_attention_plain, q, k, v, strip, causal=True), None,
+           _attention_work(1, 163, 8, 64, True, True))
+    for b, t, h, d in ((2, 100, 8, 64), (4, 163, 8, 64), (1, 436, 8, 64)):
+        qkv = torch.randn(b, t, 3 * h * d, generator=g, device="cuda").to(bf)
+        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, t, h, d) for i in range(3))
+        got = fn(q, k, v, causal=True)
+        want = flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+        _timed(rows, "flash_attention_causal", f"B={b} T={t} H={h} D={d} bf16",
+               compare(got, want), "rel_l2", ATTN_TOL,
+               partial(fn, q, k, v, causal=True),
+               partial(flash_attention_plain, q, k, v, causal=True),
+               partial(sdpa, qt, kt, vt, is_causal=True),
+               _attention_work(b, t, h, d, False, True))
+
+
+def _resblock_args(g, b, t, c):
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    return ((rn(b, t, c)).to(torch.bfloat16), 1 + 0.1 * rn(c), 0.1 * rn(c),
+            (rn(c, c) / math.sqrt(c)).to(torch.bfloat16), 0.1 * rn(c),
+            1 + 0.1 * rn(b, c), 0.1 * rn(b, c),
+            (rn(3, c, c) / math.sqrt(3 * c)).to(torch.bfloat16), 0.1 * rn(c))
 
 
 def _check_resblock(g, rows):
@@ -232,18 +355,35 @@ def _check_resblock(g, rows):
 
     fn = wrapper("scale_shift_resblock")
     c = 512
-    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
     for b, t in ((2, 1024), (2, 1600)):
-        x = rn(b, t, c).to(torch.bfloat16)
-        args = (x, 1 + 0.1 * rn(c), 0.1 * rn(c),
-                (rn(c, c) / math.sqrt(c)).to(torch.bfloat16), 0.1 * rn(c),
-                1 + 0.1 * rn(b, c), 0.1 * rn(b, c),
-                (rn(3, c, c) / math.sqrt(3 * c)).to(torch.bfloat16), 0.1 * rn(c))
+        args = _resblock_args(g, b, t, c)
         got, want = fn(*args), fused_scale_shift_resblock_plain(*args)
         torch.cuda.synchronize()
         _timed(rows, "scale_shift_resblock", f"B={b} T={t} C={c} bf16",
                compare(got, want), "excess", RES_TOL,
-               lambda: fn(*args), lambda: fused_scale_shift_resblock_plain(*args))
+               partial(fn, *args), partial(fused_scale_shift_resblock_plain, *args), None,
+               (8 * b * t * c * c, 4 * b * t * c + 8 * c * c + 16 * c + 8 * b * c))
+
+
+def _gn_qkv_args(g, b, t, c):
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    return (rn(b, t, c).to(torch.bfloat16), 1 + 0.1 * rn(c), 0.1 * rn(c),
+            (rn(c, 3 * c) / math.sqrt(c)).to(torch.bfloat16), 0.1 * rn(3 * c))
+
+
+def _check_gn_qkv(g, rows):
+    from ttts_tpu_torch.ops.cuda.resblock import fused_gn_qkv_plain
+
+    fn = wrapper("gn_qkv")
+    c = 512
+    for b, t in ((2, 1024), (4, 1024), (2, 1600), (4, 1600)):
+        args = _gn_qkv_args(g, b, t, c)
+        got, want = fn(*args), fused_gn_qkv_plain(*args)
+        torch.cuda.synchronize()
+        _timed(rows, "gn_qkv", f"B={b} T={t} C={c} -> 3C bf16",
+               compare(got, want), "excess", RES_TOL,
+               partial(fn, *args), partial(fused_gn_qkv_plain, *args), None,
+               (6 * b * t * c * c, 8 * b * t * c + 6 * c * c + 20 * c))
 
 
 def phase_kernels():
@@ -253,6 +393,7 @@ def phase_kernels():
     _check_decode(g, rows)
     _check_attention(g, rows)
     _check_resblock(g, rows)
+    _check_gn_qkv(g, rows)
     return rows
 
 
@@ -271,6 +412,7 @@ def synthetic_voice(seconds: float, sr: int, seed: int) -> np.ndarray:
 
 
 TEXT = "ni3 hao3 shi4 jie4 jin1 tian1 tian1 qi4 hen3 hao3"
+TEXT2 = "wo3 men5 yi4 qi3 qu4 gong1 yuan2 san4 bu4 ba5"
 
 
 def make_tts(device: str):
@@ -288,40 +430,89 @@ def make_tts(device: str):
     return tts
 
 
-def phase_end_to_end():
+def _check_wavs(tts, wavs) -> None:
+    """Finite waveforms, each of the length its winner's code length implies
+    (Vocos yields (frames - 1) * hop samples; the trim keeps code_len*4*hop)."""
     from ttts_tpu_torch.api import code_bucket
 
+    hop = tts.cfg.vocos.hop_length
+    bucket = code_bucket(max(tts.last_code_lens), tts.last_codes.shape[1])
+    for wav, cl in zip(wavs, tts.last_code_lens):
+        if not np.isfinite(wav).all():
+            raise AssertionError("non-finite waveform")
+        if wav.shape != (min(cl * 4 * hop, (bucket * 4 - 1) * hop),):
+            raise AssertionError(f"waveform {wav.shape} vs code_len {cl}")
+
+
+def phase_end_to_end():
     t0 = time.perf_counter()
     tts = make_tts("cuda")
     log(f"(d) init: TextToSpeech(default_config(), cuda) {time.perf_counter() - t0:.2f} s")
     voice = synthetic_voice(5.0, 44100, seed=2)
+    sr_out = tts.cfg.acoustic_mel.sample_rate
     tts.profile_stages = True
-    for name in KERNELS:
-        wrapper(name).launches = 0
-    for call in range(2):
+    reset_counts()
+    snaps, rtf = [], {}
+    for call, preset in enumerate(("fast", "fast", "ultra_fast")):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        wav = tts.tts(TEXT, voice, 44100, preset="ultra_fast", max_generate_length=400,
-                      seed=call)
+        wav = tts.tts(TEXT, voice, 44100, preset=preset, max_generate_length=400, seed=call)
         wall = time.perf_counter() - t0
-        code_len = len(tts.last_codes)
-        bucket = code_bucket(code_len, 400)
-        hop = tts.cfg.vocos.hop_length
-        if not np.isfinite(wav).all():
-            raise AssertionError("non-finite waveform")
-        # Vocos yields (frames-1)*hop samples; the trim keeps code_len*4*hop
-        if wav.shape != (min(code_len * 4 * hop, (bucket * 4 - 1) * hop),):
-            raise AssertionError(f"waveform {wav.shape} vs code_len {code_len}")
+        snaps.append(counts())
+        _check_wavs(tts, [wav])
         stages = " ".join(f"{k} {v * 1e3:.1f} ms" for k, v in tts.last_stage_times.items())
-        audio_s = wav.shape[0] / tts.cfg.acoustic_mel.sample_rate
-        log(f"(d) tts call {call}: code_len {code_len}, {wav.shape[0]} samples "
-            f"({audio_s:.2f} s audio), wall {wall:.3f} s, RTF {wall / audio_s:.4f} | {stages}")
-    launches = {name: wrapper(name).launches for name in KERNELS}
-    missing = [n for n, c in launches.items() if c == 0]
+        audio_s = wav.shape[0] / sr_out
+        rtf[preset] = wall / audio_s
+        log(f"(d) tts call {call}, preset {preset}: code_len {tts.last_code_lens[0]} "
+            f"(candidate {tts.last_best[0]} of {tts.last_codes.shape[0]}), {wav.shape[0]} "
+            f"samples ({audio_s:.2f} s audio), wall {wall:.3f} s, RTF {wall / audio_s:.4f} "
+            f"| {stages}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = tts.tts_batch([TEXT, TEXT2], voice, 44100, max_generate_length=400, seed=3)
+    wall = time.perf_counter() - t0
+    _check_wavs(tts, wavs)
+    stages = " ".join(f"{k} {v * 1e3:.1f} ms" for k, v in tts.last_stage_times.items())
+    audio_s = sum(w.shape[0] for w in wavs) / sr_out
+    log(f"(d) tts_batch of 2 texts, preset fast: code_lens {tts.last_code_lens}, "
+        f"{audio_s:.2f} s audio, wall {wall:.3f} s, {wall / 2:.3f} s per stream, "
+        f"RTF {wall / audio_s:.4f} | {stages}")
+    launches = counts()
+    per_fast = {n: snaps[1][n] - snaps[0][n] for n in KERNELS}
+    missing = [n for n, c in launches.items() if c == 0 and n not in OFF_PATH]
     if missing:
-        raise AssertionError(f"kernels never launched by tts: {missing}")
-    log(f"(d) launches in the two tts calls: {launches}")
-    return tts, launches
+        raise AssertionError(f"kernels never launched by the tts calls: {missing}")
+    log(f"(d) launches in the four calls: {launches}; in the steady fast call: {per_fast}")
+    launches.update(_fused_gn_ab(tts))
+    return tts, launches, per_fast, rtf
+
+
+def _fused_gn_ab(tts) -> dict:
+    """One trunk AttentionBlock at (B=2, T=1600, C=512) with fused_gn off and
+    on: relative L2 between the two and both times. Returns the gn_qkv
+    launch count of the fused_gn run."""
+    blk = tts.diffusion.layers[0].attn
+    g = torch.Generator("cuda").manual_seed(5)
+    x = torch.randn(2, 1600, 512, generator=g, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        strip = blk.relative_pos_embeddings.strip(1600)
+        off = blk(x, strip)
+        ms_off = median_ms(lambda: blk(x, strip))
+        reset_counts()
+        blk.fused_gn = True
+        try:
+            on = blk(x, strip)
+            n = count("gn_qkv")
+            ms_on = median_ms(lambda: blk(x, strip))
+        finally:
+            blk.fused_gn = False
+    torch.cuda.synchronize()
+    err = float((on.float() - off.float()).norm() / off.float().norm())
+    log(f"(d) trunk AttentionBlock B=2 T=1600 C=512: fused_gn on vs off rel_l2 {err:.3e} "
+        f"(tol {ATTN_TOL}) | off {ms_off:.4f} ms, on {ms_on:.4f} ms; gn_qkv launches {n}")
+    if not err <= ATTN_TOL or n == 0:
+        raise AssertionError(f"fused_gn: rel_l2 {err:.3e}, {n} gn_qkv launches")
+    return {"gn_qkv": n}
 
 
 # ---------------------------------------------------------------------- (e)
@@ -333,9 +524,14 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def phase_reference(gpu):
-    # measured on an H100: 1.8e-7, 9.8e-3, 5.9e-3, 6.9e-3; a wrong kernel
-    # gives errors of order 1
-    tol = {"refer_mel": 1e-5, "logits": 3e-2, "mel": 2e-2, "wav": 3e-2}
+    # measured on an H100 80GB HBM3 (700 W): refer_mel 1.8e-7, logits 9.8e-3,
+    # clvp_latents 7.7e-3, sims 7.3e-4, mel 6.1e-3, wav 7.3e-3 (PERF.md); the
+    # CLVP limits were set before their first reading. A wrong kernel gives
+    # errors of order 1. "sims" is over exp(temperature), the largest a
+    # similarity can be (a cosine of random latents is near 0 and has no
+    # relative precision of its own)
+    tol = {"refer_mel": 1e-5, "logits": 3e-2, "clvp_latents": 3e-2, "sims": 1e-2,
+           "mel": 2e-2, "wav": 3e-2}
     cpu = make_tts("cpu")
     g = torch.Generator().manual_seed(4)
     voice = synthetic_voice(1.0, 44100, seed=3)
@@ -357,21 +553,95 @@ def phase_reference(gpu):
             lg = gpu.gpt.decode_one(tok.cuda(), cache_g, n + i, off + i)
             lc = cpu.gpt.decode_one(tok, cache_c, n + i, off + i)
             worst = max(worst, rel_err(lg, lc))
-    errs["logits"] = worst
+        errs["logits"] = worst
+
+        text2, speech = text.expand(2, -1), torch.randint(0, 1024, (2, 64), generator=g)
+        lat_g = gpu.clvp.latents(text2.cuda(), speech.cuda())
+        lat_c = cpu.clvp.latents(text2, speech)
+        errs["clvp_latents"] = max(rel_err(a, b) for a, b in zip(lat_g, lat_c))
+        sims_g, sims_c = gpu.clvp(text2.cuda(), speech.cuda()), cpu.clvp(text2, speech)
+        errs["sims"] = float((sims_g.cpu() - sims_c).abs().max() / cpu.clvp.temperature.exp())
 
     codes = torch.randint(0, 1024, (1, 32), generator=g)
     noise = torch.randn(1, 128, 100, generator=g)
-    mel_g, wav_g = gpu.tail(text.cuda(), codes.cuda(), 32, refer.cuda(), noise.cuda(), 10)
-    mel_c, wav_c = cpu.tail(text, codes, 32, refer, noise, 10)
+    mel_g, wav_g = gpu.tail(text.cuda(), codes.cuda(), [32], refer.cuda(), noise.cuda(), 10)
+    mel_c, wav_c = cpu.tail(text, codes, [32], refer, noise, 10)
     errs["mel"], errs["wav"] = rel_err(mel_g, mel_c), rel_err(wav_g, wav_c)
-    finite = all(torch.isfinite(t).all() for t in (mel_g, wav_g))
-    log(f"(e) card vs f32 CPU path, default_config, 1 s prompt, 32 codes, 10 steps: "
-        f"prompt-code mismatches {mism}/{codes_c.numel()} (tol 0); relative L2 errors "
-        + ", ".join(f"{k} {v:.3e} (tol {tol[k]})" for k, v in errs.items()))
+    finite = all(torch.isfinite(t).all() for t in (mel_g, wav_g, sims_g))
+    log(f"(e) card vs f32 CPU path, default_config, 1 s prompt, CLVP B=2 speech T=64, "
+        f"32 codes, 10 steps: prompt-code mismatches {mism}/{codes_c.numel()} (tol 0); "
+        "relative errors " + ", ".join(f"{k} {v:.3e} (tol {tol[k]})" for k, v in errs.items()))
     bad = [k for k, v in errs.items() if not v <= tol[k]]
     if mism or bad or not finite:
         raise AssertionError(f"card path disagrees with the CPU path: {bad}, "
                              f"{mism} code mismatches, finite={finite}")
+
+
+# ---------------------------------------------------------------------- (g)
+
+# One copy of csrc with a fault planted per new phase-(c) check, each read at
+# a shape the other faults leave alone: the causal mask letting one key past
+# the diagonal (T=192, no ragged edge), the ragged-edge key mask removed (the
+# no-bias mode at T=32, no diagonal) and the GroupNorm affine dropped from
+# the fused GN -> qkv prologue.
+FAULTS = (
+    ("attention.cu", "if (diag && k0 + j > q0 + i) x", "if (diag && k0 + j > q0 + i + 1) x"),
+    ("attention.cu", "if (k0 + j >= T) x = -INFINITY;", ""),
+    ("resblock.cu", "const float mul = s_rstd[g] * scb[c];", "const float mul = s_rstd[g];"),
+    ("resblock.cu", "s_add[c] = shb[c] - s_mean[g] * mul;", "s_add[c] = -s_mean[g] * mul;"),
+)
+
+
+def phase_planted() -> None:
+    """Build the faulty copy apart and show that each new limit fails it."""
+    import shutil
+
+    from ttts_tpu_torch.ops.cuda import _build
+    from ttts_tpu_torch.ops.cuda.attention import flash_attention_plain
+    from ttts_tpu_torch.ops.cuda.resblock import fused_gn_qkv_plain
+
+    planted = _build.BUILD_DIR.parent / "planted_csrc"
+    shutil.rmtree(planted, ignore_errors=True)
+    shutil.copytree(_build.CSRC, planted)
+    for name, good, bad in FAULTS:
+        src = planted / name
+        text = src.read_text()
+        if text.count(good) != 1:
+            raise AssertionError(f"planted fault: {good!r} not found once in {name}")
+        src.write_text(text.replace(good, bad))
+    csrc, _build.CSRC = _build.CSRC, planted
+    _build.library.cache_clear()
+    g = torch.Generator("cuda").manual_seed(6)
+    fn = wrapper("flash_attention_bias")
+    bf = torch.bfloat16
+    try:
+        _build.library()
+        qkv = [torch.randn(4, t, 3, h, 64, generator=g, device="cuda").to(bf).unbind(2)
+               for t, h in ((192, 8), (32, 16))]
+        (q, k, v), (q2, k2, v2) = qkv
+        got = {
+            "causal mask off by one key, B=4 T=192 H=8 D=64: rel_l2": compare(
+                fn(q, k, v, causal=True), flash_attention_plain(q, k, v, causal=True)),
+            "ragged-edge key mask removed, no bias, B=4 T=32 H=16 D=64: rel_l2": compare(
+                fn(q2, k2, v2), flash_attention_plain(q2, k2, v2)),
+        }
+        args = _gn_qkv_args(g, 2, 1024, 512)
+        got["GN affine dropped, gn_qkv B=2 T=1024 C=512: excess"] = compare(
+            wrapper("gn_qkv")(*args), fused_gn_qkv_plain(*args))
+        torch.cuda.synchronize()
+    finally:
+        _build.CSRC = csrc
+        _build.library.cache_clear()
+        shutil.rmtree(planted, ignore_errors=True)
+    limits = (ATTN_TOL, ATTN_TOL, RES_TOL)
+    readings = [(what, m[what.rsplit(": ", 1)[1]], tol) for (what, m), tol in
+                zip(got.items(), limits)]
+    log("(g) planted faults (a copy of csrc, built apart in "
+        f"{_build.last_build_seconds:.2f} s): " + "; ".join(
+            f"{what} {val:.3e} (limit {tol})" for what, val, tol in readings))
+    caught = [val > tol for _, val, tol in readings]
+    if not all(caught):
+        raise AssertionError(f"a phase-(c) limit passes a planted fault: {readings}")
 
 
 # ---------------------------------------------------------------------- (f)
@@ -408,14 +678,16 @@ def _by_kernel(prof) -> dict:
 
 
 def phase_profile(rows, tts) -> None:
-    """Device time of each kernel and its plain version at the largest
-    phase-(c) shape, and the device's busy share of a steady tts call."""
+    """Device time of each kernel and its plain version at the last
+    phase-(c) shape, and the device's busy share of a steady tts call at the
+    default preset "fast"."""
     from torch.profiler import ProfilerActivity, profile
 
     for name in KERNELS:
         last = [r for r in rows if r["name"] == name][-1]
-        log(f"(f) {name}, device time per call at the largest (c) shape: kernel "
-            f"{device_us(last['run'])} | plain {device_us(last['run_plain'])}")
+        lib = device_us(last["run_library"]) if last["run_library"] else "none"
+        log(f"(f) {name}, device time per call at the last (c) shape: kernel "
+            f"{device_us(last['run'])} | plain {device_us(last['run_plain'])} | library {lib}")
     voice = synthetic_voice(5.0, 44100, seed=2)
     tts.profile_stages = False
     torch.cuda.synchronize()
@@ -428,9 +700,9 @@ def phase_profile(rows, tts) -> None:
         torch.cuda.synchronize()
     by_kernel = _by_kernel(prof)
     busy = sum(us for _, us in by_kernel.values()) / 1e6
-    log(f"(f) steady tts call: wall {wall:.3f} s without the profiler, device busy "
+    log(f"(f) steady tts call (fast): wall {wall:.3f} s without the profiler, device busy "
         f"{busy:.3f} s under it: busy share {busy / wall:.3f}")
-    for name, (n, us) in list(by_kernel.items())[:10]:
+    for name, (n, us) in list(by_kernel.items())[:12]:
         log(f"(f)   {us / 1e3:9.2f} ms {n:6d} launches  {name}")
 
 
@@ -439,20 +711,27 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = phase_card()
     phase_build()
     rows = phase_kernels()
-    tts, launches = phase_end_to_end()
+    tts, launches, per_fast, rtf = phase_end_to_end()
     phase_reference(tts)
     phase_profile(rows, tts)
+    phase_planted()
     table = []
-    for name, (_, _, source, replaces) in KERNELS.items():
+    for name, (_, _, _, source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
-        last = mine[-1]  # the largest shape measured
+        last = mine[-1]  # the last shape measured: the path's largest
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": launches[name],
+                      "launches_per_fast_call": per_fast[name],
                       "max_abs_err": max(r["max_abs_err"] for r in mine),
-                      "ms": last["ms"], "plain_ms": last["plain_ms"]})
+                      "ms": last["ms"], "plain_ms": last["plain_ms"],
+                      "bound_ms": last["bound_ms"], "bound_by": last["bound_by"],
+                      "library_ms": last["library_ms"]})
+    log(f"total {time.perf_counter() - t_start:.1f} s; steady RTF fast {rtf['fast']:.4f}, "
+        f"ultra_fast {rtf['ultra_fast']:.4f}")
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

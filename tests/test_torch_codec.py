@@ -16,6 +16,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from test_api import TINY
+from test_torch_config import to_port
 from ttts_tpu.models import porting as jporting
 from ttts_tpu.models.quantize import RVQState
 from ttts_tpu.models.vqvae import SynthesizerTrn as JaxSynth
@@ -74,7 +75,7 @@ def codec():
     variables["codebook"] = {"quantizer": {"state": RVQState(
         embed=embed, embed_avg=embed, cluster_size=st.cluster_size,
         inited=jnp.asarray(True))}}
-    port = SynthesizerTrn(TINY.vqvae, spec_channels=SPEC_CH).eval()
+    port = SynthesizerTrn(to_port(TINY.vqvae), spec_channels=SPEC_CH).eval()
     port.load_state_dict({k: torch.from_numpy(v) for k, v in
                           porting.synthesizer_trn_state_dict(variables).items()})
     return model, variables, port

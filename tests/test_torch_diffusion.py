@@ -15,18 +15,20 @@ import pytest
 import torch
 
 from test_api import TINY
+from test_torch_config import to_port
 from ttts_tpu.diffusion.dpm import cfg_eps_fn as jcfg
 from ttts_tpu.diffusion.dpm import dpm_solver_pp_2m_sample as jdpm
 from ttts_tpu.models import diffusion_net as jdn
 from ttts_tpu.models import porting as jporting
 from ttts_tpu.ops.pallas.attention import flash_attention as jflash
+from ttts_tpu.ops.pallas.resblock import fused_gn_qkv as jgn_qkv
 from ttts_tpu.ops.pallas.resblock import fused_scale_shift_resblock as jres_kernel
 from ttts_tpu.ops.pallas.resblock import resblock_reference
 from ttts_tpu_torch import porting
 from ttts_tpu_torch.diffusion import cfg_eps_fn, dpm_solver_pp_2m_sample
 from ttts_tpu_torch.models import diffusion_net as tdn
 from ttts_tpu_torch.ops.cuda.attention import flash_attention
-from ttts_tpu_torch.ops.cuda.resblock import fused_scale_shift_resblock
+from ttts_tpu_torch.ops.cuda.resblock import fused_gn_qkv, fused_scale_shift_resblock
 
 ATOL = 1e-4
 C = TINY.diffusion_net
@@ -58,7 +60,7 @@ def net():
     variables = jax.jit(model.init)(jax.random.key(0), mel, jnp.asarray([1.0]),
                                     jnp.zeros((1, 16, C.in_latent_channels)), mel)
     variables = {"params": _nonzero_proj(variables["params"], jax.random.key(5))}
-    port = tdn.AA_diffusion(C).eval()
+    port = tdn.AA_diffusion(to_port(C)).eval()
     port.load_state_dict({k: torch.from_numpy(v) for k, v in
                           porting.aa_diffusion_state_dict(variables).items()})
     return model, variables, port
@@ -103,6 +105,35 @@ def test_resblock_plain_matches_reference_and_pallas():
     got = fused_scale_shift_resblock(*map(torch.from_numpy, args), groups=32).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
     np.testing.assert_allclose(got, ker, atol=1e-5, rtol=0)
+
+
+def test_gn_qkv_plain_matches_pallas():
+    """fused_gn_qkv's plain version (w as (in, out), the JAX layout) against
+    the Pallas kernel in interpret mode."""
+    b, t, c = 2, 16, 128
+    args = (_rand(0, b, t, c), 1 + _rand(1, c, scale=0.1), _rand(2, c, scale=0.1),
+            _rand(3, c, 3 * c, scale=c ** -0.5), _rand(4, 3 * c, scale=0.1))
+    want = np.asarray(jgn_qkv(*map(jnp.asarray, args), groups=32, interpret=True))
+    got = fused_gn_qkv(*map(torch.from_numpy, args), groups=32).numpy()
+    assert got.shape == (b, t, 3 * c)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_attention_block_fused_gn_equals_unfused(net):
+    """AttentionBlock(fused_gn=True) == fused_gn=False on the CPU, on a trunk
+    block's weights (non-zero proj_out)."""
+    _, _, port = net
+    blk = port.layers[0].attn
+    x = torch.from_numpy(_rand(9, 2, 48, C.model_channels))
+    with torch.no_grad():
+        want = blk(x)
+        blk.fused_gn = True
+        try:
+            got = blk(x)
+        finally:
+            blk.fused_gn = False
+    assert (want - x).abs().max() > 1e-2  # the attention really adds
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
 
 
 def _trunk_jax(model, variables, x, ts, cond):

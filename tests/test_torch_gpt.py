@@ -14,6 +14,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from test_api import TINY
+from test_torch_config import to_port
 from ttts_tpu.models import gpt as jgpt
 from ttts_tpu.models import porting as jporting
 from ttts_tpu.models import sampling as jsamp
@@ -33,7 +34,7 @@ def gpt():
     variables = jax.jit(model.init)(jax.random.key(0), jnp.zeros((1, 8), jnp.int32),
                                     jnp.asarray([8]), jnp.zeros((1, 16), jnp.int32),
                                     jnp.asarray([16 * 1024]))
-    port = UnifiedVoice(C).eval()
+    port = UnifiedVoice(to_port(C)).eval()
     port.load_state_dict({k: torch.from_numpy(v) for k, v in
                           porting.unified_voice_state_dict(variables).items()})
     return model, variables, port

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from test_api import TINY
+from test_torch_config import to_port
 from ttts_tpu.config import VocosConfig
 from ttts_tpu.models import vocos as jvocos
 from ttts_tpu_torch import porting
@@ -22,7 +23,7 @@ def vocos(request):
     cfg = CFGS[request.param]
     model = jvocos.Vocos(cfg)
     variables = jax.jit(model.init)(jax.random.key(0), jnp.zeros((1, 16, cfg.input_channels)))
-    port = Vocos(cfg).eval()
+    port = Vocos(to_port(cfg)).eval()
     port.load_state_dict({k: torch.from_numpy(v) for k, v in
                           porting.vocos_state_dict(variables).items()})
     return model, variables, port

@@ -1,31 +1,36 @@
-"""Zero-shot TTS serving, port of ttts_tpu/api.py `TextToSpeech.tts`:
+"""Zero-shot TTS serving, port of ttts_tpu/api.py `TextToSpeech.tts`,
+`tts_batch` and `tts_batch_many`:
 
   text → pinyin → BPE ─┐
   prompt wav → resample → VITS spectrogram → codec extract_code → prompt codes
-                       → GPT AR decode (KV cache, fused decode attention)
-                       → GPT return_latent of the drawn codes
+                       → GPT AR decode of k candidates per text (KV cache,
+                         fused decode attention)
+                       → CLVP rerank: the best of each text's k candidates
+                       → GPT return_latent of the winners
                        → AA_diffusion DPM-Solver++(2M), cond/uncond batched 2B
-                       → Vocos → 24 kHz waveform.
+                       → Vocos → 24 kHz waveforms.
 
-Only one candidate per text is drawn (preset "ultra_fast"): the CLVP rerank
-of the other presets is not ported yet. Models stay resident on `device`;
-on a CUDA device the GPT and diffusion matmul weights are stored in bf16
-(norms and heads f32) and TF32 is switched off, so the codec's f32
+The presets set k and the number of diffusion steps; "fast" (4 candidates,
+50 steps) is the default, as in the JAX package. Models stay resident on
+`device`, the card unless the caller asks for the CPU; on a CUDA device the
+GPT, CLVP-encoder and diffusion matmul weights are stored in bf16 (norms,
+heads and CLVP's pooling f32) and TF32 is switched off, so the codec's f32
 convolutions and the VQ search stay IEEE f32.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from ttts_tpu.config import TTTSConfig, default_config
-from ttts_tpu.text import default_tokenizer, text_to_pinyin
+from ttts_tpu_torch.config import TTTSConfig, default_config
+from ttts_tpu_torch.text import default_tokenizer, text_to_pinyin
 from ttts_tpu_torch.diffusion import cfg_eps_fn, get_ode_sampler
+from ttts_tpu_torch.models.clvp import CLVP, RMSNorm
 from ttts_tpu_torch.models.diffusion_net import (
     AA_diffusion,
     denormalize_tacotron_mel,
@@ -56,10 +61,10 @@ def code_bucket(code_len: int, cap: int) -> int:
 
 
 def cast_for_inference(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
-    """Store matmul weights in `dtype`; LayerNorm / GroupNorm parameters and
-    output heads stay f32 (ttts_tpu cast_params_for_inference)."""
+    """Store matmul weights in `dtype`; LayerNorm / GroupNorm / RMSNorm
+    parameters and output heads stay f32 (ttts_tpu cast_params_for_inference)."""
     for name, m in module.named_modules():
-        if isinstance(m, (nn.LayerNorm, nn.GroupNorm)) or "head" in name:
+        if isinstance(m, (nn.LayerNorm, nn.GroupNorm, RMSNorm)) or "head" in name:
             continue
         for p in m.parameters(recurse=False):
             p.data = p.data.to(dtype)
@@ -67,8 +72,9 @@ def cast_for_inference(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
 
 
 class Draws:
-    """The random draws of one `tts` call: each decode step's Gumbel noise
-    and the diffusion start noise, from one seeded torch.Generator."""
+    """The random draws of one `tts` / `tts_batch` call from one seeded
+    torch.Generator: each decode step's Gumbel noise (steps, N*k, V) and the
+    diffusion start noise (N, 4 * bucket, n_mels)."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
@@ -84,36 +90,46 @@ class Draws:
 class TextToSpeech:
     """Resident-model serving orchestrator."""
 
-    def __init__(self, cfg: Optional[TTTSConfig] = None, device="cpu", seed: int = 0):
+    def __init__(self, cfg: Optional[TTTSConfig] = None, device="cuda", seed: int = 0):
         """Random weights from `seed`; `set_params` loads a stage's weights
-        (e.g. from ttts_tpu_torch.porting)."""
+        (e.g. from ttts_tpu_torch.porting). `device` is the card unless the
+        caller asks for the CPU; with no card, the default fails."""
         self.cfg = c = cfg or default_config()
         self.device = torch.device(device)
-        self.tok = default_tokenizer()
         if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("TextToSpeech: no CUDA device; pass device='cpu' to run "
+                                   "on the CPU")
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        self.tok = default_tokenizer()
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.codec = SynthesizerTrn(c.vqvae, spec_channels=c.audio.filter_length // 2 + 1)
             self.gpt = UnifiedVoice(c.gpt)
             self.diffusion = AA_diffusion(c.diffusion_net)
             self.vocos = Vocos(c.vocos)
+            self.clvp = CLVP(c.clvp)
         for m in self._modules().values():
             m.eval().requires_grad_(False).to(self.device)
         if self.device.type == "cuda":
-            cast_for_inference(self.gpt)
-            cast_for_inference(self.diffusion)
+            for m in (self.gpt, self.diffusion, self.clvp.text_transformer,
+                      self.clvp.speech_transformer):
+                cast_for_inference(m)
         self._cond_cache: Dict[str, tuple] = {}
         # when True, tts synchronises after each stage and records wall times
         # (perf analysis only: the syncs serialise host and device)
         self.profile_stages = False
         self.last_stage_times: Dict[str, float] = {}
-        self.last_codes = np.zeros((0,), np.int64)  # the last tts call's drawn codes
+        # the last call's draw: every candidate's codes (N*k, max_gen), the
+        # winning row of each text and each winner's code length
+        self.last_codes = np.zeros((0, 0), np.int64)
+        self.last_best: List[int] = []
+        self.last_code_lens: List[int] = []
 
     def _modules(self) -> Dict[str, nn.Module]:
         return {"codec": self.codec, "gpt": self.gpt, "diffusion": self.diffusion,
-                "vocos": self.vocos}
+                "vocos": self.vocos, "clvp": self.clvp}
 
     def set_params(self, stage: str, state_dict) -> None:
         """Load a stage's weights (arrays under the module's state-dict keys,
@@ -162,66 +178,104 @@ class TextToSpeech:
         times[name] = now - t0
         return now
 
-    @torch.no_grad()
     def tts(self, text: str, voice_wav: np.ndarray, voice_sample_rate: int,
-            preset: str = "ultra_fast", max_generate_length: int = 400, seed: int = 0,
+            preset: str = "fast", max_generate_length: int = 400, seed: int = 0,
             voice_cache_key: Optional[str] = None, draws: Optional[Draws] = None) -> np.ndarray:
-        """Full zero-shot synthesis → 24 kHz float waveform. `draws` overrides
-        the random draws (default: Draws(seed, device))."""
+        """Full zero-shot synthesis → 24 kHz float waveform: `tts_batch` of
+        one text (the JAX package's tts computes the same)."""
+        return self.tts_batch([text], voice_wav, voice_sample_rate, preset,
+                              max_generate_length, seed, voice_cache_key, draws)[0]
+
+    @torch.no_grad()
+    def tts_batch(self, texts: Sequence[str], voice_wav: np.ndarray, voice_sample_rate: int,
+                  preset: str = "fast", max_generate_length: int = 400, seed: int = 0,
+                  voice_cache_key: Optional[str] = None,
+                  draws: Optional[Draws] = None) -> List[np.ndarray]:
+        """Batched streams: several texts against one voice in one GPT batch
+        of N*k rows (each text repeated k times, in order), one CLVP rerank
+        (argmax inside each block of k), one tail batch bucketed by the
+        longest winner, each waveform trimmed to its own code length.
+        `draws` overrides the random draws (default: Draws(seed, device))."""
         opts = PRESETS[preset]
-        if opts["num_autoregressive_samples"] != 1:
-            raise NotImplementedError(
-                f"preset {preset!r} draws several candidates; the CLVP rerank that "
-                "picks one is not ported yet (use preset='ultra_fast')")
+        k, n = opts["num_autoregressive_samples"], len(texts)
         c, dev = self.cfg, self.device
         draws = draws or Draws(seed, dev)
         times: Dict[str, float] = {}
         t0 = time.perf_counter()
 
-        ids = np.asarray(self.tok.encode(text_to_pinyin(text)), np.int64)
-        lt = _round_up(len(ids), 16)
-        text_ids = torch.as_tensor(np.pad(ids, (0, lt - len(ids))), device=dev)[None]
+        ids = [np.asarray(self.tok.encode(text_to_pinyin(t)), np.int64) for t in texts]
+        lt = _round_up(max(len(i) for i in ids), 16)
+        text_ids = torch.as_tensor(np.stack([np.pad(i, (0, lt - len(i))) for i in ids]),
+                                   device=dev)
         prompt_codes, refer_mel = self.get_conditioning(voice_wav, voice_sample_rate,
                                                         voice_cache_key)
         lp = _round_up(prompt_codes.shape[1], 16)
         prompt_codes = torch.nn.functional.pad(prompt_codes, (0, lp - prompt_codes.shape[1]))
         t0 = self._mark(times, "conditioning", t0)
 
-        gumbel = draws.gumbel((max_generate_length, 1, c.gpt.number_mel_codes))
+        text_b = text_ids.repeat_interleave(k, dim=0)
+        gumbel = draws.gumbel((max_generate_length, n * k, c.gpt.number_mel_codes))
         codes = inference_speech(
-            self.gpt, text_ids, prompt_codes, max_generate_length,
+            self.gpt, text_b, prompt_codes.expand(n * k, -1), max_generate_length,
             SamplingParams(top_p=0.8, temperature=0.8, repetition_penalty=2.0), gumbel)
-        arr = codes[0].cpu().numpy()
-        stops = np.where(arr == c.gpt.stop_mel_token)[0]
-        code_len = max(int(stops[0]) if len(stops) else arr.shape[0], 1)
-        bucket = code_bucket(code_len, arr.shape[0])
-        clean = np.where(np.arange(arr.shape[0]) < code_len, arr, 0)[:bucket]
-        self._mark(times, "gpt_decode", t0)
+        t0 = self._mark(times, "gpt_decode", t0)
+        if k > 1:
+            sims = self.clvp(text_b, codes).reshape(n, k)
+            best = (sims.argmax(dim=1) + torch.arange(n, device=dev) * k).tolist()
+        else:
+            best = list(range(n))
+        t0 = self._mark(times, "clvp_rerank", t0)
 
-        noise = draws.normal((1, bucket * 4, c.diffusion_net.in_channels))
-        _, wav = self.tail(text_ids, torch.as_tensor(clean, device=dev)[None], code_len,
+        arr = codes.cpu().numpy()
+        code_lens = []
+        for row in arr[best]:
+            stops = np.where(row == c.gpt.stop_mel_token)[0]
+            code_lens.append(max(int(stops[0]) if len(stops) else row.shape[0], 1))
+        bucket = code_bucket(max(code_lens), arr.shape[1])
+        clean = np.stack([np.where(np.arange(arr.shape[1]) < cl, row, 0)[:bucket]
+                          for row, cl in zip(arr[best], code_lens)])
+        noise = draws.normal((n, bucket * 4, c.diffusion_net.in_channels))
+        _, wav = self.tail(text_ids, torch.as_tensor(clean, device=dev), code_lens,
                            refer_mel, noise, opts["diffusion_iterations"], times)
+        self.last_stage_times = times
+        self.last_codes, self.last_best, self.last_code_lens = arr, best, code_lens
         # exact audio = code_len x 4 mel frames x hop samples (Vocos yields
         # (frames - 1) x hop, so a full bucket comes out one hop short)
-        self.last_stage_times = times
-        self.last_codes = arr[:code_len]
-        return wav[0, : code_len * 4 * c.vocos.hop_length].cpu().numpy()
+        wav = wav.cpu().numpy()
+        hop = c.vocos.hop_length
+        return [wav[i, : cl * 4 * hop] for i, cl in enumerate(code_lens)]
+
+    def tts_batch_many(self, batches: Sequence[Sequence[str]], voice_wav: np.ndarray,
+                       voice_sample_rate: int, preset: str = "fast",
+                       max_generate_length: int = 400, seed: int = 0,
+                       voice_cache_key: Optional[str] = None) -> List[List[np.ndarray]]:
+        """Sustained serving over a stream of request batches: batch i is
+        `tts_batch` with seed `seed + i`, the JAX package's contract. The
+        batches run one after another; overlapping batch i+1's decode with
+        batch i's tail, as the JAX package does, waits for a decode loop
+        captured in CUDA graphs."""
+        return [self.tts_batch(texts, voice_wav, voice_sample_rate, preset,
+                               max_generate_length, seed + i, voice_cache_key)
+                for i, texts in enumerate(batches)]
 
     @torch.no_grad()
-    def tail(self, text_ids, codes, code_len: int, refer_mel, noise, steps: int,
+    def tail(self, text_ids, codes, code_lens: Sequence[int], refer_mel, noise, steps: int,
              times: Optional[Dict[str, float]] = None):
-        """GPT latent → diffusion → Vocos for drawn codes (1, bucket), zero
-        past `code_len`; `noise` (1, 4 * bucket, n_mels) starts the sampler.
-        Returns (mel (1, 4 * bucket, n_mels), waveform (1, L))."""
+        """GPT latent → diffusion → Vocos for drawn codes (N, bucket), row i
+        zero past `code_lens[i]`; `refer_mel` (1, Tr, n_mels) serves every
+        row; `noise` (N, 4 * bucket, n_mels) starts the sampler. Returns
+        (mel (N, 4 * bucket, n_mels), waveform (N, L))."""
         c, dev, net = self.cfg, self.device, self.diffusion
+        b = codes.shape[0]
         t0 = time.perf_counter()
-        latent = self.gpt(text_ids, torch.tensor([text_ids.shape[1]], device=dev), codes,
-                          torch.tensor([code_len * 1024], device=dev), return_latent=True)
+        latent = self.gpt(text_ids, torch.full((b,), text_ids.shape[1], device=dev), codes,
+                          torch.as_tensor(code_lens, device=dev) * 1024, return_latent=True)
         out_len = codes.shape[1] * 4
-        cond = net.timestep_independent(latent, normalize_tacotron_mel(refer_mel), out_len)
+        refer = normalize_tacotron_mel(refer_mel).expand(b, -1, -1)
+        cond = net.timestep_independent(latent, refer, out_len)
         strips = net.rel_biases(out_len)
         eps_fn = cfg_eps_fn(lambda x2, t2, e2: net.trunk(x2, t2, e2, strips), cond,
-                            net.unconditioned(1, out_len), c.diffusion.cond_free_k)
+                            net.unconditioned(b, out_len), c.diffusion.cond_free_k)
         t0 = self._mark(times, "latent_and_cond", t0)
         mel = denormalize_tacotron_mel(
             get_ode_sampler(c.diffusion.sampler)(eps_fn, noise, steps=steps))

@@ -8,6 +8,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 

@@ -1,4 +1,5 @@
-// Fused scale-shift ResBlock of the diffusion trunk.
+// Fused scale-shift ResBlock of the diffusion trunk, and the fused
+// GroupNorm -> qkv projection of its attention blocks.
 //
 // Replaces ttts_tpu/ops/pallas/resblock.py fused_scale_shift_resblock /
 // _resblock_kernel:
@@ -30,6 +31,16 @@
 // shared-memory tiles; the next tile's global loads are in flight while the
 // current tile's MMAs run. The normalised activations never reach device
 // memory.
+//
+// Also replaces resblock.py fused_gn_qkv / _gn_qkv_kernel:
+//   out = (GroupNorm(x) * g + b) @ W + bias,  W (C, 3C), out (B, T, 3C),
+// f32 statistics, the normalised x rounded to bf16 for the product. On the
+// H100 it is the first half of the resblock design: the same (mean, M2)
+// partials pass, then a GEMM (MODE 0) whose A-tile prologue applies the GN
+// affine with no SiLU, with the bias in the epilogue. At the trunk's
+// (B=2, T=1600, C=512) that is 5.0 GFLOP against ~16 MB of traffic: bound by
+// the tensor cores (~5 us), where the TPU kernel re-paid the statistics for
+// each of its three column blocks.
 #include "common.cuh"
 
 constexpr int GN_ROWS = 128;  // rows per statistics chunk (= threads per block)
@@ -85,7 +96,7 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 16 A elements of one row in flight: bf16 x (MODE 1) or f32 h (MODE 2)
+// 16 A elements of one row in flight: bf16 x (MODE 0, 1) or f32 h (MODE 2)
 template <int MODE>
 struct ARaw;
 template <>
@@ -103,17 +114,19 @@ struct ARaw<2> {
   }
 };
 
+// MODE 0: A = GN(x)*g + b from bf16 x; out (bf16) = A @ W + bias.
 // MODE 1: A = SiLU(GN(x)*g1 + b1) from bf16 x; out (f32) = A @ W + bias.
 // MODE 2: A = conv3 taps of SiLU(GN(h)*a2[b] + b2[b]) from f32 h;
 //         out (bf16) = resid + A @ W + bias, with W the (3C, C) conv kernel.
-// W is (K, C) row-major, (in, out) as in the flax layout.
+// W is (K, N) row-major, (in, out) as in the flax layout; N = C but in
+// MODE 0, where N = 3C.
 template <int MODE>
 __global__ void __launch_bounds__(RB_THREADS)
 rb_gemm_kernel(const void* __restrict__ src, const float2* __restrict__ part,
                const float* __restrict__ sc, const float* __restrict__ sh,
                const bf16* __restrict__ W, const float* __restrict__ bias,
-               const bf16* __restrict__ resid, void* __restrict__ dst, int Tlen, int C, int G,
-               int S, float eps) {
+               const bf16* __restrict__ resid, void* __restrict__ dst, int Tlen, int C, int N,
+               int G, int S, float eps) {
   __shared__ __align__(16) bf16 As[2][RB_BM * RB_LDA];
   __shared__ __align__(16) bf16 Bs[2][RB_BK * RB_LDB];
   __shared__ float s_mul[RB_MAX_C], s_add[RB_MAX_C];
@@ -122,7 +135,7 @@ rb_gemm_kernel(const void* __restrict__ src, const float2* __restrict__ part,
   const int m0 = blockIdx.x * RB_BM, n0 = blockIdx.y * RB_BN, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-  const int K = MODE == 1 ? C : 3 * C;
+  const int K = MODE == 2 ? 3 * C : C;
   const int cg = C / G;
 
   // GroupNorm x affine as one per-channel multiply-add: Chan's combination
@@ -142,8 +155,8 @@ rb_gemm_kernel(const void* __restrict__ src, const float2* __restrict__ part,
     s_rstd[g] = rsqrtf(m2 / n_all + eps);
   }
   __syncthreads();
-  const float* scb = MODE == 1 ? sc : sc + (size_t)b * C;
-  const float* shb = MODE == 1 ? sh : sh + (size_t)b * C;
+  const float* scb = MODE == 2 ? sc + (size_t)b * C : sc;
+  const float* shb = MODE == 2 ? sh + (size_t)b * C : sh;
   for (int c = tid; c < C; c += RB_THREADS) {
     const int g = c / cg;
     const float mul = s_rstd[g] * scb[c];
@@ -155,9 +168,10 @@ rb_gemm_kernel(const void* __restrict__ src, const float2* __restrict__ part,
   // A loader: thread -> (row ar, 16 consecutive k from ak0)
   const int ar = tid >> 1, ak0 = (tid & 1) * 16;
   const int at = m0 + ar;
-  auto load_a = [&](int k0, ARaw<MODE>& raw, bool& ok, int& c0) {
+  using Raw = ARaw<MODE == 2 ? 2 : 1>;
+  auto load_a = [&](int k0, Raw& raw, bool& ok, int& c0) {
     const int kg = k0 + ak0;
-    if (MODE == 1) {
+    if (MODE != 2) {
       c0 = kg;
       ok = at < Tlen;
       if (ok) {
@@ -177,14 +191,15 @@ rb_gemm_kernel(const void* __restrict__ src, const float2* __restrict__ part,
       }
     }
   };
-  auto store_a = [&](int buf, const ARaw<MODE>& raw, bool ok, int c0) {
+  auto act = [](float y) { return MODE == 0 ? y : silu(y); };
+  auto store_a = [&](int buf, const Raw& raw, bool ok, int c0) {
     uint32_t w[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       float lo = 0.f, hi = 0.f;  // zero rows stay zero after the activation
       if (ok) {
-        lo = silu(fmaf(raw.get(2 * e), s_mul[c0 + 2 * e], s_add[c0 + 2 * e]));
-        hi = silu(fmaf(raw.get(2 * e + 1), s_mul[c0 + 2 * e + 1], s_add[c0 + 2 * e + 1]));
+        lo = act(fmaf(raw.get(2 * e), s_mul[c0 + 2 * e], s_add[c0 + 2 * e]));
+        hi = act(fmaf(raw.get(2 * e + 1), s_mul[c0 + 2 * e + 1], s_add[c0 + 2 * e + 1]));
       }
       __nv_bfloat162 v2 = __floats2bfloat162_rn(lo, hi);
       w[e] = *reinterpret_cast<uint32_t*>(&v2);
@@ -198,7 +213,7 @@ rb_gemm_kernel(const void* __restrict__ src, const float2* __restrict__ part,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int i = tid + j * RB_THREADS, kk = i >> 4, ch = i & 15;
-      raw[j] = *reinterpret_cast<const uint4*>(W + (size_t)(k0 + kk) * C + n0 + ch * 8);
+      raw[j] = *reinterpret_cast<const uint4*>(W + (size_t)(k0 + kk) * N + n0 + ch * 8);
     }
   };
   auto store_b = [&](int buf, const uint4 (&raw)[4]) {
@@ -210,7 +225,7 @@ rb_gemm_kernel(const void* __restrict__ src, const float2* __restrict__ part,
   };
 
   float acc[2][8][4] = {};
-  ARaw<MODE> araw;
+  Raw araw;
   uint4 braw[4];
   bool aok;
   int ac0;
@@ -261,9 +276,12 @@ rb_gemm_kernel(const void* __restrict__ src, const float2* __restrict__ part,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = n0 + wn + j * 8 + 2 * t4;
-        const size_t o = ((size_t)b * Tlen + t) * C + c;
+        const size_t o = ((size_t)b * Tlen + t) * N + c;
         const float y0 = acc[i][j][2 * r] + bias[c], y1 = acc[i][j][2 * r + 1] + bias[c + 1];
-        if (MODE == 1) {
+        if (MODE == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(dst) + o) =
+              __floats2bfloat162_rn(y0, y1);
+        } else if (MODE == 1) {
           *reinterpret_cast<float2*>(static_cast<float*>(dst) + o) = make_float2(y0, y1);
         } else {
           const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(resid + o);
@@ -287,12 +305,28 @@ extern "C" int ttts_resblock(const void* x, const void* g1, const void* b1, cons
   rb_gemm_kernel<1><<<ggrid, RB_THREADS, 0, st>>>(
       x, static_cast<const float2*>(part1), static_cast<const float*>(g1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w1), static_cast<const float*>(bd1),
-      nullptr, h, Tlen, C, G, S, eps);
+      nullptr, h, Tlen, C, C, G, S, eps);
   gn_partial_kernel<float><<<sgrid, GN_ROWS, 0, st>>>(static_cast<const float*>(h),
                                                       static_cast<float2*>(part2), Tlen, C, G, S);
   rb_gemm_kernel<2><<<ggrid, RB_THREADS, 0, st>>>(
       h, static_cast<const float2*>(part2), static_cast<const float*>(a2),
       static_cast<const float*>(b2), static_cast<const bf16*>(w3), static_cast<const float*>(bc3),
-      static_cast<const bf16*>(x), out, Tlen, C, G, S, eps);
+      static_cast<const bf16*>(x), out, Tlen, C, C, G, S, eps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ttts_gn_qkv(const void* x, const void* g, const void* b, const void* w,
+                           const void* bias, void* out, void* part, int B, int Tlen, int C,
+                           int N, int G, float eps, void* stream) {
+  if (C % RB_BK || N % RB_BN || C % G || C > RB_MAX_C || G > RB_MAX_G)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = TTTS_STREAM(stream);
+  const int S = (Tlen + GN_ROWS - 1) / GN_ROWS;
+  gn_partial_kernel<bf16><<<dim3(G, B, S), GN_ROWS, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<float2*>(part), Tlen, C, G, S);
+  rb_gemm_kernel<0><<<dim3((Tlen + RB_BM - 1) / RB_BM, N / RB_BN, B), RB_THREADS, 0, st>>>(
+      x, static_cast<const float2*>(part), static_cast<const float*>(g),
+      static_cast<const float*>(b), static_cast<const bf16*>(w), static_cast<const float*>(bias),
+      nullptr, out, Tlen, C, N, G, S, eps);
   return (int)cudaGetLastError();
 }

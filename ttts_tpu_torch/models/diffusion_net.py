@@ -19,10 +19,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ttts_tpu.config import DiffusionNetConfig
+from ttts_tpu_torch.config import DiffusionNetConfig
 from ttts_tpu_torch.models.blocks import Conv1d, Linear
 from ttts_tpu_torch.ops.cuda.attention import flash_attention
-from ttts_tpu_torch.ops.cuda.resblock import fused_scale_shift_resblock
+from ttts_tpu_torch.ops.cuda.resblock import fused_gn_qkv, fused_scale_shift_resblock
 
 TACOTRON_MEL_MAX = 5.5451774444795624753378569716654
 
@@ -69,6 +69,15 @@ class GroupNorm32(nn.GroupNorm):
         y = F.group_norm(x.float().transpose(1, 2), self.num_groups,
                          self.weight.float(), self.bias.float(), self.eps)
         return y.transpose(1, 2)
+
+
+def _relaid(owner: nn.Module, weights, fn):
+    """fn(*weights): a kernel's layout of `owner`'s weights, computed again
+    only when a weight's storage or version changes, not on every call."""
+    key = tuple((w.data_ptr(), w._version) for w in weights)
+    if key != getattr(owner, "_layout_key", None):
+        owner._layout, owner._layout_key = fn(*weights), key
+    return owner._layout
 
 
 class Conv1x1(nn.Module):
@@ -123,11 +132,16 @@ class RelativePositionBias(nn.Module):
 class AttentionBlock(nn.Module):
     """GroupNorm → qkv 1x1 (legacy per-head [q;k;v] channel split) →
     Toeplitz-bias attention → zero-initialised proj_out → residual
-    (utils.AttentionBlock:172-215)."""
+    (utils.AttentionBlock:172-215).
 
-    def __init__(self, channels: int, num_heads: int = 1):
+    `fused_gn` runs qkv(norm(x)) as one fused_gn_qkv call, as the JAX
+    package's flag does (diffusion_net.py:160); no model sets it, as in JAX
+    (diffusion_net.py:364-371)."""
+
+    def __init__(self, channels: int, num_heads: int = 1, fused_gn: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.fused_gn = fused_gn
         self.norm = GroupNorm32(channels)
         self.qkv = Conv1x1(channels, 3 * channels)
         self.proj_out = Conv1x1(channels, channels, zero=True)
@@ -138,7 +152,13 @@ class AttentionBlock(nn.Module):
         b, t, c = x.shape
         h = self.num_heads
         dk = c // h
-        qkv = self.qkv(self.norm(x)).reshape(b, t, h, 3 * dk)
+        if self.fused_gn:
+            w = _relaid(self, (self.qkv.weight,), lambda w: w[:, :, 0].t().contiguous())
+            qkv = fused_gn_qkv(x.to(w.dtype), self.norm.weight, self.norm.bias, w,
+                               self.qkv.bias, groups=self.norm.num_groups)
+        else:
+            qkv = self.qkv(self.norm(x))
+        qkv = qkv.reshape(b, t, h, 3 * dk)
         q, k, v = qkv[..., :dk], qkv[..., dk:2 * dk], qkv[..., 2 * dk:]
         if strip is None:
             strip = self.relative_pos_embeddings.strip(t)
@@ -157,24 +177,16 @@ class ScaleShiftResBlock(nn.Module):
         self.emb_layers = nn.Sequential(nn.SiLU(), Linear(emb_channels, 2 * channels))
         self.out_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(), nn.Dropout(0.0),
                                         Conv1d(channels, channels, 3))
-        self._layout_key = None
-
-    def _kernel_weights(self):
-        """w1 (in, out) and w3 (tap, in, out), re-laid-out once per weight
-        version instead of every call."""
-        w1, w3 = self.in_layers[2].weight, self.out_layers[3].weight
-        key = (w1.data_ptr(), w1._version, w3.data_ptr(), w3._version)
-        if key != self._layout_key:
-            self._layout = (w1[:, :, 0].t().contiguous(), w3.permute(2, 1, 0).contiguous())
-            self._layout_key = key
-        return self._layout
 
     def forward(self, x, emb):
         scale, shift = self.emb_layers(emb).float().chunk(2, dim=-1)
         gn1, gn2 = self.in_layers[0], self.out_layers[0]
         a2 = gn2.weight.float() * (1 + scale)
         b2 = gn2.bias.float() * (1 + scale) + shift
-        w1, w3 = self._kernel_weights()
+        # w1 (in, out) and w3 (tap, in, out), the kernel's layouts
+        w1, w3 = _relaid(self, (self.in_layers[2].weight, self.out_layers[3].weight),
+                        lambda w1, w3: (w1[:, :, 0].t().contiguous(),
+                                        w3.permute(2, 1, 0).contiguous()))
         return fused_scale_shift_resblock(
             x.to(w1.dtype), gn1.weight, gn1.bias, w1, self.in_layers[2].bias, a2, b2,
             w3, self.out_layers[3].bias, groups=gn1.num_groups)

@@ -5,7 +5,9 @@ learned position tables, and its autoregressive serving loop.
 State-dict keys are the reference's (ttts/gpt/model.py wrapping HF GPT2Model:
 gpt.h.{i}.attn.c_attn with Conv1D weights stored (in, out)). Single-token
 decode runs through the fused decode-attention kernel (ops/cuda) over
-per-layer caches laid out (B, H, max_len, dk).
+per-layer caches laid out (B, H, max_len, dk); the prefill and the
+return_latent forward run the flash-attention kernel in its causal mode on
+(B, T, H, dk) views of the fused qkv.
 
 Dtypes: activations follow the matmul weights' dtype (bf16 after
 `cast_for_inference` on the card); LayerNorms and heads compute in f32.
@@ -22,8 +24,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ttts_tpu.config import GPTConfig
+from ttts_tpu_torch.config import GPTConfig
 from ttts_tpu_torch.models.sampling import SamplingParams, sample_logits
+from ttts_tpu_torch.ops.cuda.attention import flash_attention
 from ttts_tpu_torch.ops.cuda.decode_attention import decode_attention
 
 Cache = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -85,15 +88,11 @@ class GPT2Block(nn.Module):
                                  v.reshape(b, h, dk), ck, cv, pos)
             a = a.reshape(b, 1, d).to(x.dtype)
         else:
-            qh, kh, vh = (z.reshape(b, t, h, dk).transpose(1, 2) for z in (q, k, v))
+            q, k, v = (z.reshape(b, t, h, dk) for z in (q, k, v))
             if cache is not None:
-                cache[0][:, :, pos: pos + t] = kh
-                cache[1][:, :, pos: pos + t] = vh
-            s = (qh @ kh.transpose(-1, -2)).float() / math.sqrt(dk)
-            causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
-            s = s.masked_fill(~causal, torch.finfo(torch.float32).min)
-            p = torch.softmax(s, dim=-1).to(x.dtype)
-            a = (p @ vh).transpose(1, 2).reshape(b, t, d)
+                cache[0][:, :, pos: pos + t] = k.transpose(1, 2)
+                cache[1][:, :, pos: pos + t] = v.transpose(1, 2)
+            a = flash_attention(q, k, v, causal=True).reshape(b, t, d)
         x = x + self.attn.c_proj(a)
         return x + self.mlp.c_proj(gelu_new(self.mlp.c_fc(self.ln_2(x))))
 

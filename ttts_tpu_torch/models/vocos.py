@@ -9,7 +9,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ttts_tpu.config import VocosConfig
+from ttts_tpu_torch.config import VocosConfig
 from ttts_tpu_torch.ops.stft import istft
 
 

@@ -11,7 +11,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from ttts_tpu.config import VQVAEConfig
+from ttts_tpu_torch.config import VQVAEConfig
 from ttts_tpu_torch.models.blocks import (
     AntiAliasedActivation,
     Conv1d,

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (ttts_tpu_torch/csrc/*.cu).
 
-nvcc compiles every source in one call into a shared library with a plain C
+nvcc compiles each source to an object, one process per source, all started
+together, and links the objects into one shared library with a plain C
 interface, loaded with ctypes. The library is named by a hash of the sources
 and flags, so an edited kernel is rebuilt and an unchanged one reused. The
 build happens at first use (never at import): the CPU-only test host has no
@@ -26,7 +27,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
@@ -34,8 +35,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ttts_vq_nearest": (_P, _P, _P, _P, _I, _I, _I, _P),
     "ttts_decode_attention_bf16": (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
-    "ttts_flash_bias_attention": (_P,) * 5 + (_I,) * 8 + (_F, _P),
+    "ttts_flash_attention": (_P,) * 5 + (_I,) * 12 + (_F, _P),
     "ttts_resblock": (_P,) * 13 + (_I, _I, _I, _I, _F, _P),
+    "ttts_gn_qkv": (_P,) * 7 + (_I,) * 5 + (_F, _P),
 }
 
 # seconds this process spent in nvcc (0.0 when an existing build was reused)
@@ -74,19 +76,34 @@ def build(verbose: bool = False) -> pathlib.Path:
     path = library_path()
     if path.exists() and not verbose:
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    objs = BUILD_DIR / f"obj.{os.getpid()}"
+    objs.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-           "-o", str(tmp), *map(str, cu)]
+    nvcc, ptxas = _nvcc(), ["-Xptxas=-v"] if verbose else []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(src, subprocess.Popen([nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o",
+                                     str(objs / f"{src.stem}.o"), str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+             for src in cu]
+    failed = []
+    for src, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err}")
+        elif verbose:
+            print(f"{src.name}:\n{err}")
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *(str(objs / f"{src.stem}.o") for src in cu)],
+                             capture_output=True, text=True)
+        if res.returncode:
+            failed.append(f"link ({res.returncode}):\n{res.stderr}")
     last_build_seconds = time.perf_counter() - t0
-    if res.returncode:
+    shutil.rmtree(objs, ignore_errors=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr)
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, path)
     return path
 

@@ -1,10 +1,12 @@
-"""Fused scale-shift ResBlock of the diffusion trunk.
+"""Fused scale-shift ResBlock of the diffusion trunk, and the fused
+GroupNorm → qkv projection of its attention blocks.
 
-Kernel: ttts_tpu_torch/csrc/resblock.cu, replacing ttts_tpu/ops/pallas/
-resblock.py (fused_scale_shift_resblock):
-    x + conv3(SiLU(GN(Dense(SiLU(GN(x)*g1 + b1)))*a2 + b2)) + bc3
+Kernels: ttts_tpu_torch/csrc/resblock.cu, replacing ttts_tpu/ops/pallas/
+resblock.py's two kernels:
+  fused_scale_shift_resblock: x + conv3(SiLU(GN(Dense(SiLU(GN(x)*g1 + b1)))
+                              *a2 + b2)) + bc3;
+  fused_gn_qkv:               (GN(x)*g + b) @ W + bias,
 with f32 GroupNorm statistics and matmul operands in x's dtype (f32 sums).
-The TPU's fifth kernel, fused_gn_qkv, is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 
 from ttts_tpu_torch.ops.cuda import _build
 
-_BN = 128  # RB_BN in resblock.cu: C must be a multiple of it
+_BN = 128  # RB_BN in resblock.cu: output widths must be multiples of it
 _GN_ROWS = 128  # GN_ROWS in resblock.cu
 
 
@@ -78,3 +80,43 @@ def fused_scale_shift_resblock(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
 
 
 fused_scale_shift_resblock.launches = 0
+
+
+def fused_gn_qkv_plain(x, g, b, w, bias, groups: int = 32, eps: float = 1e-5):
+    """x (B, T, C); g, b (C,) the GroupNorm affine; w (C, K) as (in, out),
+    the JAX package's layout (the port's Conv1x1 weight (K, C, 1) transposed);
+    bias (K,) → (B, T, K) in x's dtype. The normalised x is rounded to x's
+    dtype before the product (ttts_tpu fused_gn_qkv)."""
+    dt = x.dtype
+    h = (_gn(x.float(), groups, eps) * g.float() + b.float()).to(dt).float()
+    return (h @ w.to(dt).float() + bias.float()).to(dt)
+
+
+def fused_gn_qkv(x, g, b, w, bias, groups: int = 32, eps: float = 1e-5):
+    """See fused_gn_qkv_plain (w is (in, out)). On CUDA x and w are bf16, C
+    is a multiple of 32 (at most 1024), K a multiple of 128 and groups at
+    most 64."""
+    if x.device.type == "cpu":
+        return fused_gn_qkv_plain(x, g, b, w, bias, groups, eps)
+    if x.device.type != "cuda" or any(a.device != x.device for a in (g, b, w, bias)):
+        raise ValueError("fused_gn_qkv: all tensors must be on one CUDA device")
+    if x.dtype != torch.bfloat16 or w.dtype != x.dtype:
+        raise TypeError("fused_gn_qkv: the kernel takes bfloat16 x and w")
+    bsz, t, c = x.shape
+    k = w.shape[1]
+    if (c % 32 or c > 1024 or c % groups or groups > 64 or k % _BN or w.shape != (c, k)
+            or bias.shape != (k,)):
+        raise ValueError(f"fused_gn_qkv: unsupported shapes x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}, groups {groups}")
+    x, w = x.contiguous(), w.contiguous()
+    g, b, bias = (v.float().contiguous() for v in (g, b, bias))
+    part = torch.empty((bsz, groups, -(-t // _GN_ROWS), 2), dtype=torch.float32,
+                       device=x.device)
+    out = torch.empty((bsz, t, k), dtype=x.dtype, device=x.device)
+    _build.launch("ttts_gn_qkv", x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(),
+                  bias.data_ptr(), out.data_ptr(), part.data_ptr(), bsz, t, c, k, groups, eps)
+    fused_gn_qkv.launches += 1
+    return out
+
+
+fused_gn_qkv.launches = 0

@@ -241,6 +241,43 @@ def aa_diffusion_state_dict(variables) -> StateDict:
     return sd
 
 
+# ---------------------------------------------------------------------- clvp
+
+
+def _clvp_encoder(sd: StateDict, p: str, tree) -> None:
+    """clvp.CLVPEncoder → the reference's CheckpointedXTransformerEncoder
+    keys: layers 2i (attention) and 2i+1 (GLU feed-forward), each
+    [norms, wrapped block], then the wrapper's final LayerNorm."""
+    for i in range(_count(tree, "EncoderLayer_")):
+        lyr = tree[f"EncoderLayer_{i}"]
+        ap = f"{p}.transformer.attn_layers.layers.{2 * i}"
+        fp = f"{p}.transformer.attn_layers.layers.{2 * i + 1}"
+        sd[ap + ".0.0.g"] = _a(lyr["RMSNorm_0"]["scale"])
+        for j, name in enumerate(("to_q", "to_k", "to_v")):
+            sd[f"{ap}.1.wrap.{name}.weight"] = _a(lyr[f"Dense_{j}"]["kernel"]).T
+        _dense(sd, ap + ".1.wrap.to_out", lyr["Dense_3"])
+        sd[fp + ".0.0.g"] = _a(lyr["RMSNorm_1"]["scale"])
+        _dense(sd, fp + ".1.wrap.net.0.proj", lyr["Dense_4"])
+        _dense(sd, fp + ".1.wrap.net.3", lyr["Dense_5"])
+    _norm(sd, p + ".transformer.norm", tree["LayerNorm_0"])
+
+
+def clvp_state_dict(variables) -> StateDict:
+    """JAX CLVP variables (use_xformers=True) → ttts_tpu_torch.models.clvp.
+    CLVP state dict. Inverse of port_clvp_xformers_state."""
+    p = variables["params"]
+    sd: StateDict = {
+        "text_emb.weight": _a(p["Embed_0"]["embedding"]),
+        "speech_emb.weight": _a(p["Embed_1"]["embedding"]),
+        "to_text_latent.weight": _a(p["Dense_0"]["kernel"]).T,
+        "to_speech_latent.weight": _a(p["Dense_1"]["kernel"]).T,
+        "temperature": _a(p["temperature"]).reshape(()),
+    }
+    _clvp_encoder(sd, "text_transformer", p["CLVPEncoder_0"])
+    _clvp_encoder(sd, "speech_transformer", p["CLVPEncoder_1"])
+    return sd
+
+
 # --------------------------------------------------------------------- vocos
 
 
@@ -269,4 +306,5 @@ STATE_DICT_FNS = {
     "gpt": unified_voice_state_dict,
     "diffusion": aa_diffusion_state_dict,
     "vocos": vocos_state_dict,
+    "clvp": clvp_state_dict,
 }

@@ -61,6 +61,19 @@ def test_plain_at_ragged_t_matches_masked_einsum(mode, t):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("mode", ["causal", "nobias"])
+@pytest.mark.parametrize("t", [64, 65])
+@pytest.mark.parametrize("d", [32, 64])
+def test_plain_at_tile_edges_matches_masked_einsum(mode, t, d):
+    """One exact 64-key tile, and a last tile of one key, at both head
+    widths the no-bias / causal kernel takes."""
+    _, causal = MODES[mode]
+    q, k, v, _ = _inputs(t * d, 2, t, 3, d)
+    want = _masked_einsum(q, k, v, None, causal)
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
 def test_strides_of_the_models_qkv_views():
     """The kernel reads q, k, v through (token, head) strides: the GPT's
     [q; k; v] split and the diffusion trunk's per-head [q; k; v] split both

@@ -101,10 +101,12 @@ def _unpack(x, h, b):
     return np.moveaxis(np.moveaxis(y, -1, 0), -1, 1).copy()
 
 
-@pytest.mark.parametrize("pos", [0, 63, 64, 200, 255])
+# the kernel's 8 cluster ranks take ceil((pos+1)/8) rows each: 0, 1, 7, 8,
+# 63, 64, 281 and 562 sit on the boundaries of those shares
+@pytest.mark.parametrize("pos", [0, 1, 7, 8, 63, 64, 200, 255, 281, 562])
 def test_decode_attention_plain_matches_reference_and_kernel(interpret_decode, pos):
     rng = np.random.default_rng(pos)
-    ml, dk, h, b = 256, 16, 8, 16
+    ml, dk, h, b = 256 if pos < 256 else 576, 16, 8, 16
     q, uk, uv = (rng.standard_normal(s).astype(np.float32)
                  for s in ((dk, h * b), (1, dk, h * b), (1, dk, h * b)))
     kc, vc = (rng.standard_normal((ml, dk, h * b)).astype(np.float32) for _ in range(2))

@@ -47,3 +47,65 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 
 #define TTTS_STREAM(s) (reinterpret_cast<cudaStream_t>(s))
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ---- Hopper asynchronous copies: mbarriers, bulk copies (sm_90)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// called by one thread; then fence_barrier_init and a block barrier
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// orders this thread's generic-proxy shared-memory accesses before later
+// async-proxy ones (wgmma operand reads, TMA and bulk-copy writes)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of copies completing on `bar`
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait for the phase of `bar` with the given parity to complete. A wait that
+// never ends (a wrong parity, a copy that never lands) traps after some
+// seconds, so it surfaces as a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0; !mbar_try_wait(bar, parity); ++n)
+    if (n == (1u << 22)) __trap();
+}
+
+// contiguous global -> shared copy of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned), completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}

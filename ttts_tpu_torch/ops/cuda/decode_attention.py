@@ -1,9 +1,12 @@
 """Fused single-token decode attention with in-place KV-cache row update.
 
 Kernel: ttts_tpu_torch/csrc/decode_attention.cu, replacing
-ttts_tpu/ops/pallas/decode_attention.py (fused_decode_attention). The caches
-use a GPU-natural layout, (B, H, max_len, dk) per layer, instead of the TPU's
-lane-packed (max_len, dk, H*B); both versions write row `pos` in place.
+ttts_tpu/ops/pallas/decode_attention.py (fused_decode_attention): one launch
+per step, a cluster of 8 blocks per (batch, head) whose partials merge in
+distributed shared memory, so the grid does not depend on `pos` and the
+wrapper allocates only the output. The caches use a GPU-natural layout,
+(B, H, max_len, dk) per layer, instead of the TPU's lane-packed
+(max_len, dk, H*B); both versions write row `pos` in place.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 
 from ttts_tpu_torch.ops.cuda import _build
 
-_CHUNK = 32  # DEC_CHUNK in decode_attention.cu
+DK = 64  # DEC_DK in decode_attention.cu: the head width the kernel takes
 
 
 def decode_attention_plain(q, uk, uv, k_cache, v_cache, pos: int) -> torch.Tensor:
@@ -41,20 +44,17 @@ def decode_attention(q, uk, uv, k_cache, v_cache, pos: int) -> torch.Tensor:
         raise TypeError("decode_attention: the kernel takes bfloat16 q, uk, uv and caches")
     b, h, max_len, dk = k_cache.shape
     if (q.shape != (b, h, dk) or uk.shape != q.shape or uv.shape != q.shape
-            or v_cache.shape != k_cache.shape or not 0 <= pos < max_len):
-        raise ValueError(f"decode_attention: bad shapes or pos {pos}")
+            or v_cache.shape != k_cache.shape or not 0 <= pos < max_len or dk != DK):
+        raise ValueError(f"decode_attention: bad shapes {tuple(k_cache.shape)} (dk must be "
+                         f"{DK}) or pos {pos}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("decode_attention: caches must be contiguous (updated in place)")
     q, uk, uv = q.contiguous(), uk.contiguous(), uv.contiguous()
-    nsplit = pos // _CHUNK + 1
-    f32 = dict(dtype=torch.float32, device=q.device)
-    m_part = torch.empty(b * h, nsplit, **f32)
-    z_part = torch.empty(b * h, nsplit, **f32)
-    acc_part = torch.empty(b * h, nsplit, dk, **f32)
     out = torch.empty_like(q)
-    _build.launch("ttts_decode_attention_bf16", q.data_ptr(), uk.data_ptr(), uv.data_ptr(),
-                  k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-                  m_part.data_ptr(), z_part.data_ptr(), acc_part.data_ptr(),
+    tensors = (q, uk, uv, k_cache, v_cache, out)
+    if any(t.data_ptr() % 16 for t in tensors):  # the kernel's 16-byte loads and bulk copies
+        raise ValueError("decode_attention: tensors must be 16-byte aligned")
+    _build.launch("ttts_decode_attention_bf16", *(t.data_ptr() for t in tensors),
                   b * h, max_len, dk, pos, 1.0 / math.sqrt(dk))
     decode_attention.launches += 1
     return out

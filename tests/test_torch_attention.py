@@ -61,16 +61,19 @@ def test_plain_at_ragged_t_matches_masked_einsum(mode, t):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("mode", ["causal", "nobias"])
-@pytest.mark.parametrize("t", [64, 65])
+@pytest.mark.parametrize("mode", ["bias", "bias_causal", "causal", "nobias"])
+@pytest.mark.parametrize("t", [64, 65, 129])
 @pytest.mark.parametrize("d", [32, 64])
 def test_plain_at_tile_edges_matches_masked_einsum(mode, t, d):
-    """One exact 64-key tile, and a last tile of one key, at both head
-    widths the no-bias / causal kernel takes."""
-    _, causal = MODES[mode]
-    q, k, v, _ = _inputs(t * d, 2, t, 3, d)
-    want = _masked_einsum(q, k, v, None, causal)
-    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    """One exact 64-key tile, a last tile of one key, and a third tile of
+    one key (the kernel's ring refilled), in every mode at both head widths
+    the kernel takes."""
+    use_strip, causal = {"bias": (True, False), **MODES}[mode]
+    q, k, v, strip = _inputs(t * d, 2, t, 3, d)
+    strip = strip if use_strip else None
+    want = _masked_einsum(q, k, v, strip, causal)
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)),
+                          None if strip is None else torch.from_numpy(strip), causal=causal)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 

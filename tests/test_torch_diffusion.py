@@ -84,27 +84,54 @@ def test_attention_block_with_nonzero_proj(net):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("b,t,h,d", [(2, 128, 4, 16), (1, 256, 2, 32)])
-def test_flash_attention_plain_matches_pallas(b, t, h, d):
+@pytest.mark.parametrize("b,t,h,d,causal", [(2, 128, 4, 16, False), (1, 256, 2, 32, False),
+                                             (1, 128, 2, 64, False), (2, 128, 4, 32, True),
+                                             (1, 256, 2, 64, True)])
+def test_flash_attention_plain_matches_pallas(b, t, h, d, causal):
+    """The bias mode, and bias + causal, at both trunk head widths (the
+    Pallas kernel takes T % 128 == 0; ragged T is held against an einsum in
+    tests/test_torch_attention.py)."""
     q, k, v = (_rand(i, b, t, h, d) for i in range(3))
     strip = _rand(3, h, 2 * t - 1)
     want = jflash(*map(jnp.asarray, (q, k, v)), strip=jnp.asarray(strip),
-                  scale=d ** -0.5, interpret=True)
-    got = flash_attention(*map(torch.from_numpy, (q, k, v, strip)))
+                  scale=d ** -0.5, causal=causal, interpret=True)
+    got = flash_attention(*map(torch.from_numpy, (q, k, v, strip)), causal=causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
-def test_resblock_plain_matches_reference_and_pallas():
-    b, t, c = 2, 16, 128
-    args = (_rand(0, b, t, c), 1 + _rand(1, c, scale=0.1), _rand(2, c, scale=0.1),
+# bf16 x, w1, w3 (the serving dtypes): the output is rounded to bf16 and so
+# are both activations before their products, in a summation order that
+# differs between the frameworks, so an output may land one bf16 step away
+# (2^-7 of its value) and a flipped activation rounding moves it by far less
+# than 1e-3 of max|want| (read: at most 4.9e-4 against max|want| 4.3)
+BF16_STEP = 2.0 ** -7
+
+
+@pytest.mark.parametrize("b,t,dtype", [(2, 16, "float32"), (2, 40, "float32"),
+                                       (1, 136, "float32"), (2, 40, "bfloat16"),
+                                       (1, 136, "bfloat16")])
+def test_resblock_plain_matches_reference_and_pallas(b, t, dtype):
+    """At a T that is no multiple of the card's 128-row tile (40, 136), at
+    B = 1, and in bf16 against resblock_reference (f32: also the Pallas
+    kernel in interpret mode, 1e-5)."""
+    c = 128
+    args = [_rand(0, b, t, c), 1 + _rand(1, c, scale=0.1), _rand(2, c, scale=0.1),
             _rand(3, c, c, scale=c ** -0.5), _rand(4, c, scale=0.1),
             1 + _rand(5, b, c, scale=0.1), _rand(6, b, c, scale=0.1),
-            _rand(7, 3, c, c, scale=(3 * c) ** -0.5), _rand(8, c, scale=0.1))
-    ref = np.asarray(resblock_reference(*map(jnp.asarray, args), groups=32))
-    ker = np.asarray(jres_kernel(*map(jnp.asarray, args), groups=32, interpret=True))
-    got = fused_scale_shift_resblock(*map(torch.from_numpy, args), groups=32).numpy()
-    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
-    np.testing.assert_allclose(got, ker, atol=1e-5, rtol=0)
+            _rand(7, 3, c, c, scale=(3 * c) ** -0.5), _rand(8, c, scale=0.1)]
+    jargs, targs = list(map(jnp.asarray, args)), list(map(torch.from_numpy, args))
+    if dtype == "bfloat16":
+        for i in (0, 3, 7):  # x, w1, w3
+            jargs[i], targs[i] = jargs[i].astype(jnp.bfloat16), targs[i].to(torch.bfloat16)
+    ref = np.asarray(resblock_reference(*jargs, groups=32).astype(jnp.float32))
+    got = fused_scale_shift_resblock(*targs, groups=32).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+        ker = np.asarray(jres_kernel(*jargs, groups=32, interpret=True))
+        np.testing.assert_allclose(got, ker, atol=1e-5, rtol=0)
+    else:
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, atol=1e-3 * np.abs(ref).max(), rtol=BF16_STEP)
 
 
 def test_gn_qkv_plain_matches_pallas():

@@ -6,6 +6,7 @@
 // Python wrapper can raise on a refused launch.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -108,4 +109,189 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
           "r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// arrive once on `bar` (no transaction bytes)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// ---- TMA: a box of a tensor map into shared memory, completing on `bar`.
+// Coordinates are signed, innermost first; elements outside the tensor
+// (a negative coordinate included) arrive as zeros.
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma (sm_90a)
+
+// shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (in 16-byte units), layout (1: 128-byte swizzle, 2: 64-byte).
+// K-major tiles: SBO = the bytes of 8 rows, LBO unused. MN-major tiles:
+// SBO = the bytes of 8 K-rows, LBO = the bytes between 64-element spans of
+// the M/N dimension (one 128-byte swizzle row each).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                            uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// at most one committed group still in flight
+__device__ __forceinline__ void wg_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of wgmma's registers across the
+// fence / wait instructions, which it cannot see depend on them
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define WG_F8(d, i)                                                                \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),     \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64x64 f32) = [d +] a (64x16, shared, K-major) . b (16x64, shared, K-major)
+__device__ __forceinline__ void wgmma_s(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64xD f32) += a (64x16, registers) . b (16xD, shared, MN-major)
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+        "}\n"
+        : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    static_assert(D == 32, "head width 32 or 64");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+        "}\n"
+        : WG_F8(d, 0), WG_F8(d, 8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+
+// d (64x128 f32) += a (64x16, shared, K-major) . b (16x128, shared, MN-major)
+__device__ __forceinline__ void wgmma_n128_tb(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24), WG_F8(d, 32), WG_F8(d, 40),
+        WG_F8(d, 48), WG_F8(d, 56)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- host: tensor maps
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
+static inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 tensor of `rank` dims (innermost first; strides in bytes of dims
+// 1.. ) as a tensor map with box `box`, zero fill out of bounds
+static inline bool bf16_map(CUtensorMap* map, const void* ptr, cuuint32_t rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

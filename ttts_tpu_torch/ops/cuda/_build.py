@@ -36,7 +36,7 @@ _SIGNATURES = {
     "ttts_vq_nearest": (_P, _P, _P, _P, _I, _I, _I, _P),
     "ttts_decode_attention_bf16": (_P,) * 6 + (_I, _I, _I, _I, _F, _P),
     "ttts_flash_attention": (_P,) * 5 + (_I,) * 12 + (_F, _P),
-    "ttts_resblock": (_P,) * 13 + (_I, _I, _I, _I, _F, _P),
+    "ttts_resblock": (_P,) * 15 + (_I, _I, _I, _I, _F, _P),
     "ttts_gn_qkv": (_P,) * 7 + (_I,) * 5 + (_F, _P),
 }
 
@@ -55,12 +55,13 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: pathlib.Path):
+    return sorted(csrc.glob("*.cu")), sorted(csrc.glob("*.cuh"))
 
 
-def library_path() -> pathlib.Path:
-    cu, cuh = _sources()
+def library_path(csrc: pathlib.Path | None = None) -> pathlib.Path:
+    """The library built from the sources in `csrc` (default: CSRC)."""
+    cu, cuh = _sources(csrc or CSRC)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in cu + cuh:
         h.update(p.name.encode())
@@ -68,16 +69,17 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libttts_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> pathlib.Path:
-    """Compile the kernels unless an identical build exists; return the
-    library path. `verbose` adds ptxas's register/shared-memory report to the
-    compiler output, which is printed."""
+def build(verbose: bool = False, csrc: pathlib.Path | None = None) -> pathlib.Path:
+    """Compile the kernels of `csrc` (default: CSRC) unless an identical
+    build exists; return the library path. `verbose` adds ptxas's
+    register/shared-memory report to the compiler output, which is printed.
+    Builds of different sources may run at once (threads of one process)."""
     global last_build_seconds
-    path = library_path()
+    path = library_path(csrc)
     if path.exists() and not verbose:
         return path
-    cu, _ = _sources()
-    objs = BUILD_DIR / f"obj.{os.getpid()}"
+    cu, _ = _sources(csrc or CSRC)
+    objs = BUILD_DIR / f"obj.{os.getpid()}.{path.stem}"
     objs.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     nvcc, ptxas = _nvcc(), ["-Xptxas=-v"] if verbose else []

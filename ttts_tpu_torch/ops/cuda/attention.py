@@ -2,12 +2,13 @@
 (relative-position) bias and an optional causal mask.
 
 Kernel: ttts_tpu_torch/csrc/attention.cu, replacing ttts_tpu/ops/pallas/
-attention.py (flash_attention) in all four of its modes: the no-bias and
-causal modes on wgmma with TMA-fed K/V tiles (each view of q, k, v becomes a
-tensor map, built from the strides `_strides` checks), the bias modes on
-mma.sync. The bias is given as its (H, 2T-1) diagonal strip: bias[h, i, j] =
-strip[h, j-i+T-1]. The launch counts are kept per mode ("bias", "nobias",
-"causal", "bias_causal"), so that a run shows which modes it took.
+attention.py (flash_attention) in all four of its modes with one Hopper
+kernel: wgmma for Q.K^T and P.V, Q/K/V tiles by TMA (each view of q, k, v
+becomes a tensor map, built from the strides `_strides` checks). The bias is
+given as its (H, 2T-1) diagonal strip: bias[h, i, j] = strip[h, j-i+T-1];
+each block stages the strip segment its queries meet in shared memory once.
+The launch counts are kept per mode ("bias", "nobias", "causal",
+"bias_causal"), so that a run shows which modes it took.
 """
 
 from __future__ import annotations

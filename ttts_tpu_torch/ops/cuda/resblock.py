@@ -7,6 +7,13 @@ resblock.py's two kernels:
                               *a2 + b2)) + bc3;
   fused_gn_qkv:               (GN(x)*g + b) @ W + bias,
 with f32 GroupNorm statistics and matmul operands in x's dtype (f32 sums).
+On the card the resblock is five launches: x's GroupNorm partials, the
+first activation written once in bf16, the Dense on wgmma (TMA-fed, its
+epilogue also giving h's partials), the second activation, and the conv3
+as one wgmma GEMM whose taps are TMA loads of a (C, T, B) tensor map, so
+rows -1 and T of each batch arrive as zeros. The wrapper allocates h, both
+activations and the partials. fused_gn_qkv shares the statistics pass and
+runs an mma.sync GEMM with the GN affine in its A-tile prologue.
 """
 
 from __future__ import annotations
@@ -15,8 +22,9 @@ import torch
 
 from ttts_tpu_torch.ops.cuda import _build
 
-_BN = 128  # RB_BN in resblock.cu: output widths must be multiples of it
-_GN_ROWS = 128  # GN_ROWS in resblock.cu
+_BN = 128  # RB_BN / QKV_BN in resblock.cu: output widths must be multiples of it
+_GN_ROWS, _X_ROWS = 128, 32  # rows of a GroupNorm partial of h and of x (resblock.cu)
+_CG = 16  # RB_CG in resblock.cu: channels per group the resblock kernel takes
 
 
 def _gn(h: torch.Tensor, groups: int, eps: float) -> torch.Tensor:
@@ -49,7 +57,7 @@ def fused_scale_shift_resblock_plain(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
 def fused_scale_shift_resblock(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
                                groups: int = 32, eps: float = 1e-5):
     """See fused_scale_shift_resblock_plain. On CUDA x, w1 and w3 are bf16,
-    C is a multiple of 128 (at most 1024) and groups at most 64."""
+    C is a multiple of 128 (at most 1024) and C / groups is 16."""
     if x.device.type == "cpu":
         return fused_scale_shift_resblock_plain(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
                                                 groups, eps)
@@ -59,7 +67,7 @@ def fused_scale_shift_resblock(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
     if x.dtype != torch.bfloat16 or w1.dtype != x.dtype or w3.dtype != x.dtype:
         raise TypeError("fused_scale_shift_resblock: the kernel takes bfloat16 x, w1, w3")
     b, t, c = x.shape
-    if (c % _BN or c > 1024 or c % groups or groups > 64 or w1.shape != (c, c)
+    if (c % _BN or c > 1024 or c != _CG * groups or w1.shape != (c, c)
             or w3.shape != (3, c, c) or a2.shape != (b, c) or b2.shape != (b, c)):
         raise ValueError(f"fused_scale_shift_resblock: unsupported shapes x {tuple(x.shape)}, "
                          f"groups {groups}")
@@ -68,13 +76,16 @@ def fused_scale_shift_resblock(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
     g1, b1, bd1, bc3, a2, b2 = map(vec, (g1, b1, bd1, bc3, a2, b2))
     f32 = dict(dtype=torch.float32, device=x.device)
     h = torch.empty((b, t, c), **f32)
-    # per (group, 128-row chunk) GroupNorm partials (mean, M2) of x and of h
-    parts = torch.empty((2, b, groups, -(-t // _GN_ROWS), 2), **f32)
+    acts = torch.empty((2, b, t, c), dtype=x.dtype, device=x.device)  # the two activations
+    # GroupNorm partials (mean, M2) per group of x's 32-row and h's 128-row chunks
+    part_x = torch.empty((b, groups, -(-t // _X_ROWS), 2), **f32)
+    part_h = torch.empty((b, groups, -(-t // _GN_ROWS), 2), **f32)
     out = torch.empty_like(x)
     _build.launch("ttts_resblock", x.data_ptr(), g1.data_ptr(), b1.data_ptr(),
                   w1.data_ptr(), bd1.data_ptr(), a2.data_ptr(), b2.data_ptr(),
                   w3.data_ptr(), bc3.data_ptr(), out.data_ptr(), h.data_ptr(),
-                  parts[0].data_ptr(), parts[1].data_ptr(), b, t, c, groups, eps)
+                  acts[0].data_ptr(), acts[1].data_ptr(), part_x.data_ptr(),
+                  part_h.data_ptr(), b, t, c, groups, eps)
     fused_scale_shift_resblock.launches += 1
     return out
 
@@ -94,8 +105,8 @@ def fused_gn_qkv_plain(x, g, b, w, bias, groups: int = 32, eps: float = 1e-5):
 
 def fused_gn_qkv(x, g, b, w, bias, groups: int = 32, eps: float = 1e-5):
     """See fused_gn_qkv_plain (w is (in, out)). On CUDA x and w are bf16, C
-    is a multiple of 32 (at most 1024), K a multiple of 128 and groups at
-    most 64."""
+    is a multiple of 32 (at most 1024), C / groups a multiple of 8, K a
+    multiple of 128 and groups at most 64."""
     if x.device.type == "cpu":
         return fused_gn_qkv_plain(x, g, b, w, bias, groups, eps)
     if x.device.type != "cuda" or any(a.device != x.device for a in (g, b, w, bias)):
@@ -104,13 +115,13 @@ def fused_gn_qkv(x, g, b, w, bias, groups: int = 32, eps: float = 1e-5):
         raise TypeError("fused_gn_qkv: the kernel takes bfloat16 x and w")
     bsz, t, c = x.shape
     k = w.shape[1]
-    if (c % 32 or c > 1024 or c % groups or groups > 64 or k % _BN or w.shape != (c, k)
+    if (c % 32 or c > 1024 or c % (8 * groups) or groups > 64 or k % _BN or w.shape != (c, k)
             or bias.shape != (k,)):
         raise ValueError(f"fused_gn_qkv: unsupported shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, groups {groups}")
     x, w = x.contiguous(), w.contiguous()
     g, b, bias = (v.float().contiguous() for v in (g, b, bias))
-    part = torch.empty((bsz, groups, -(-t // _GN_ROWS), 2), dtype=torch.float32,
+    part = torch.empty((bsz, groups, -(-t // _X_ROWS), 2), dtype=torch.float32,
                        device=x.device)
     out = torch.empty((bsz, t, k), dtype=x.dtype, device=x.device)
     _build.launch("ttts_gn_qkv", x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(),

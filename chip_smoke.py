@@ -30,11 +30,12 @@ Phases, one printed line each, any failure raising (non-zero exit):
       noise) → Vocos tail, each within a stated relative error (the card runs
       the GPT, CLVP and diffusion in bf16);
   (f) torch.profiler device time of each kernel (split into its launches
-      by name), its plain version and library call, the resblock's two
-      GEMMs alone through torch.matmul, and the device's busy share of a
-      steady tts call at preset "fast";
+      by name), its plain version and library call, the products of the
+      resblock, VQ and gn_qkv alone through cuBLAS (floors, not the same
+      functions), and the device's busy share of a steady tts call at
+      preset "fast";
   (g) the limits of the phase-(c) checks, each shown to fail its planted
-      fault (FAULTS) in one of two copies of the kernels, built apart at
+      fault (FAULTS) in one of three copies of the kernels, built apart at
       once.
 The last two lines are the kernel table as JSON and then
 {"ok": true, "device": {...}}. Imports no JAX; needs a CUDA card.
@@ -179,8 +180,15 @@ def phase_build(verbose: bool = False) -> float:
 #   resblock, gn_qkv: excess <= 1e-3 against the bf16 plain version:
 #              resblock correct 4e-5 to 3.3e-4; conv3's taps through a map
 #              over B*T rows 0.20, h's ragged tile's partials dropped 1.1e-2,
-#              the FiLM scale dropped 5.9e-2; gn_qkv with the GN affine
-#              dropped 0.16 (phase (g)).
+#              the FiLM scale dropped 5.9e-2; gn_qkv correct 6e-9 to
+#              3.9e-4, the GroupNorm scale g dropped 0.10, the mean dropped
+#              0.31 (phase (g));
+#   vq:        "wrong" = code mismatches beyond a 1e-5 relative distance tie,
+#              plus one if the planted exact tie did not go to the lower
+#              index: must be 0 (the kernel drops ||x||^2 and sums in
+#              another order than the plain version, so near-ties may flip;
+#              a wrong kernel flips whole rows): correct 0; ties to the
+#              higher index 1, rank 7 dropped 62, ||e||^2 dropped 407.
 DECODE_TOL, ATTN_TOL, RES_TOL = 1e-5, 5e-3, 1e-3
 BF16_STEP = 2.0 ** -7  # a bf16 rounding step, relative to the rounded value
 
@@ -206,9 +214,10 @@ def _timed(rows, name, shape, m, metric, tol, run, run_plain, run_library, work)
     lms = median_ms(run_library) if run_library else None
     bms, by = bound(*work)
     lib = f"{lms:.4f} ms" if lms is not None else "none"
-    err = (f"max_abs_err {m['max_abs']:.3e}, rel_l2 {m['rel_l2']:.3e}, excess "
-           f"{m['excess']:.3e} (tol: {metric} <= {tol})" if metric
-           else f"max_abs_err {m['max_abs']:.3e}")
+    err = ", ".join([f"max_abs_err {m['max_abs']:.3e}"] + [
+        f"{k} {m[k]:.3e}" for k in ("rel_l2", "excess", "wrong") if k in m])
+    if metric:
+        err += f" (tol: {metric} <= {tol})"
     log(f"(c) {name} {shape}: {err} | kernel {ms:.4f} ms, plain {pms:.4f} ms, "
         f"library {lib}, bound {bms:.4f} ms ({by})")
     rows.append({"name": name, "max_abs_err": m["max_abs"], "ms": ms, "plain_ms": pms,
@@ -218,34 +227,56 @@ def _timed(rows, name, shape, m, metric, tol, run, run_plain, run_library, work)
         raise AssertionError(f"{name} {shape}: {metric} {m[metric]:.3e} > {tol}")
 
 
+def _vq_inputs(g, n, bins):
+    """x (n, 192), codebook (bins, 192) with an exact tie: code 7 = code 3 =
+    x[0], so both versions must pick index 3 for row 0."""
+    cb = torch.randn(bins, 192, generator=g, device="cuda")
+    cb[7] = cb[3]
+    x = torch.randn(n, 192, generator=g, device="cuda")
+    x[0] = cb[3]
+    return x, cb
+
+
+def _vq_reading(x, cb, got) -> dict:
+    """The kernel's codes `got` against the plain version's: max_abs, the
+    largest gap between the two codes' distances; wrong, the mismatches
+    beyond a 1e-5 relative near-tie plus one if row 0's exact tie did not go
+    to index 3; mism and near, the mismatches and the near-ties among them."""
+    from ttts_tpu_torch.ops.cuda.vq import vq_nearest_plain
+
+    want = vq_nearest_plain(x, cb)
+    dist = ((x * x).sum(1, keepdim=True) - 2.0 * (x @ cb.T) + (cb * cb).sum(1)[None])
+    rows_i = torch.arange(x.shape[0], device=x.device)
+    d_got, d_want = dist[rows_i, got.long()], dist[rows_i, want.long()]
+    diff = (d_got - d_want).abs()
+    mism = got != want
+    near = diff <= 1e-5 * d_want.abs().clamp_min(1e-30)
+    return {"max_abs": float(diff.max()),
+            "wrong": float(int((mism & ~near).sum()) + (int(got[0]) != 3)),
+            "mism": int(mism.sum()), "near": int((mism & near).sum())}
+
+
 def _check_vq(g, rows):
     from ttts_tpu_torch.ops.cuda.vq import vq_nearest_plain
 
     fn = wrapper("vq_nearest")
-    for n in (125, 500):
-        cb = torch.randn(1024, 192, generator=g, device="cuda")
-        cb[7] = cb[3]  # an exact tie: both versions must pick index 3
-        x = torch.randn(n, 192, generator=g, device="cuda")
-        x[0] = cb[3]
-        got, want = fn(x, cb), vq_nearest_plain(x, cb)
+    edge = _edge_generator()
+    # one row (one cluster, 39 zero-filled rows never written), 33 rows
+    # (one ragged 40-row tile), a bins that is no multiple of the 128-code
+    # slice (the last slice's zero-filled codes masked), then the codec's
+    # shapes (N=125: a ragged last tile of 5 rows; N=500: 13 tiles, 104
+    # blocks)
+    for gen, (n, bins) in ((edge, (1, 1024)), (edge, (33, 1024)), (edge, (500, 1000)),
+                           (g, (125, 1024)), (g, (500, 1024))):
+        x, cb = _vq_inputs(gen, n, bins)
+        m = _vq_reading(x, cb, fn(x, cb))
         torch.cuda.synchronize()
-        dist = ((x * x).sum(1, keepdim=True) - 2.0 * (x @ cb.T)
-                + (cb * cb).sum(1)[None])
-        rows_i = torch.arange(n, device="cuda")
-        d_got, d_want = dist[rows_i, got.long()], dist[rows_i, want.long()]
-        diff = (d_got - d_want).abs()
-        mism = got != want
-        near = diff <= 1e-5 * d_want.abs().clamp_min(1e-30)
-        bad = int((mism & ~near).sum())
-        if int(got[0]) != 3 or bad:
-            raise AssertionError(f"vq N={n}: {bad} code mismatches beyond a 1e-5 "
-                                 f"relative near-tie, tie pick {int(got[0])}")
         _timed(rows, "vq_nearest",
-               f"N={n} bins=1024 D=192 f32: mismatches {int(mism.sum())} (near-ties "
-               f"{int((mism & near).sum())}; tolerance: mismatch only on a <=1e-5 relative "
-               f"distance tie), distance gap", {"max_abs": float(diff.max())}, None, None,
+               f"N={n} bins={bins} D=192 f32: mismatches {m['mism']} (near-ties {m['near']}; "
+               "tolerance: a mismatch only on a <=1e-5 relative distance tie, the exact tie "
+               "to index 3), distance gap", m, "wrong", 0,
                partial(fn, x, cb), partial(vq_nearest_plain, x, cb), None,
-               (2 * n * 1024 * 192, (n * 192 + 1024 * 192 + n) * 4, PEAK_F32))
+               (2 * n * bins * 192, (n * 192 + bins * 192 + n) * 4, PEAK_F32))
 
 
 def _check_decode(g, rows):
@@ -409,9 +440,11 @@ def _check_resblock(g, rows):
                (8 * b * t * c * c, 4 * b * t * c + 8 * c * c + 16 * c + 8 * b * c))
 
 
-def _gn_qkv_args(g, b, t, c):
+def _gn_qkv_args(g, b, t, c, shift: float = 0.0, scale: float = 1.0):
+    """x = shift + scale * N(0, 1): a shift and scale away from 0 and 1 make
+    the GroupNorm's mean and 1/std matter to the output."""
     rn = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
-    return (rn(b, t, c).to(torch.bfloat16), 1 + 0.1 * rn(c), 0.1 * rn(c),
+    return ((shift + scale * rn(b, t, c)).to(torch.bfloat16), 1 + 0.1 * rn(c), 0.1 * rn(c),
             (rn(c, 3 * c) / math.sqrt(c)).to(torch.bfloat16), 0.1 * rn(3 * c))
 
 
@@ -420,8 +453,12 @@ def _check_gn_qkv(g, rows):
 
     fn = wrapper("gn_qkv")
     c = 512
-    for b, t in ((2, 1024), (4, 1024), (2, 1600), (4, 1600)):
-        args = _gn_qkv_args(g, b, t, c)
+    edge = _edge_generator()
+    # T=65: one ragged 128-row tile (rows 65-127 zero-filled, never stored)
+    # of x shifted and scaled, then the trunk's buckets at B=2 and 4
+    for gen, (b, t), shift in ((edge, (1, 65), 1.0), (g, (2, 1024), 0.0), (g, (4, 1024), 0.0),
+                               (g, (2, 1600), 0.0), (g, (4, 1600), 0.0)):
+        args = _gn_qkv_args(gen, b, t, c, shift, 1.0 + shift)
         got, want = fn(*args), fused_gn_qkv_plain(*args)
         torch.cuda.synchronize()
         _timed(rows, "gn_qkv", f"B={b} T={t} C={c} -> 3C bf16",
@@ -635,9 +672,13 @@ def phase_reference(gpu):
 # from the neighbouring batch and not from the zero fill (B=2, T=1024, no
 # ragged tile), and the GroupNorm partials of h's ragged last 128-row tile
 # dropped from the merge (B=1, T=1600: no neighbouring batch; x's 32-row
-# partials have no ragged one there); the GroupNorm affine dropped from the
-# fused GN -> qkv prologue. Copy 1: the FiLM scale a2 dropped, which every
-# resblock call meets.
+# partials have no ragged one there); the GroupNorm scale g dropped from
+# gn_qkv's multiply-add (B=2, T=1024, x shifted and scaled); in the VQ
+# kernel, ties resolved to the higher index (the key's index bits inverted). Copy 1: the FiLM scale a2 dropped, which
+# every resblock call meets; the mean dropped from gn_qkv's multiply-add;
+# rank 7's codes dropped from the VQ cluster merge. Copy 2: ||e||^2 dropped
+# from the VQ distance (each VQ fault meets every VQ call, so each has its
+# own copy).
 FAULTS = (  # (copy, file, correct text, planted text)
     (0, "attention.cu", "k0 == q0 && j > i)", "k0 == q0 && j > i + 1)"),
     (0, "attention.cu", "return k0 + j < T ? x : -INFINITY;", "return x;"),
@@ -650,10 +691,16 @@ FAULTS = (  # (copy, file, correct text, planted text)
      "const cuuint64_t conv_dims[3] = {(cuuint64_t)C, (cuuint64_t)T * B, 1};"),
     (0, "resblock.cu", "m0 + tap - 1, b);", "b * T + m0 + tap - 1, 0);"),
     (0, "resblock.cu", "const int s_end = S;", "const int s_end = T / rows;"),
-    (0, "resblock.cu", "const float mul = s_rstd[g] * sc[c];", "const float mul = s_rstd[g];"),
-    (0, "resblock.cu", "s_add[c] = sh[c] - s_mean[g] * mul;", "s_add[c] = -s_mean[g] * mul;"),
+    (0, "resblock.cu", "m[e] = s_rstd[g] * sc[c];", "m[e] = s_rstd[g];"),
+    (0, "vq.cu", "return ((u64)ord << 32) | (unsigned)j;",
+     "return ((u64)ord << 32) | ~(unsigned)j;"),
+    (0, "vq.cu", "return (int)(k & 0xffffffffull);", "return (int)~(unsigned)(k & 0xffffffffull);"),
     (1, "resblock.cu", "mul[e] = rs * scb[c];", "mul[e] = FILM ? rs : rs * scb[c];"),
+    (1, "resblock.cu", "a[e] = sh[c] - s_mean[g] * m[e];", "a[e] = sh[c];"),
+    (1, "vq.cu", "for (int r = 1; r < VQ_RANKS; ++r)", "for (int r = 1; r < VQ_RANKS - 1; ++r)"),
+    (2, "vq.cu", "vq_key(nk - 2.f * acc[i][k], j)", "vq_key(-2.f * acc[i][k], j)"),
 )
+COPIES = 1 + max(f[0] for f in FAULTS)
 
 
 def _planted_readings(copy: int, g) -> list:
@@ -671,9 +718,23 @@ def _planted_readings(copy: int, g) -> list:
         args = _resblock_args(g, b, t, 512)
         return compare(res(*args), fused_scale_shift_resblock_plain(*args))
 
+    def gn_qkv():  # x shifted and scaled: GN's mean and scale matter
+        args = _gn_qkv_args(g, 2, 1024, 512, 1.0, 2.0)
+        return compare(wrapper("gn_qkv")(*args), fused_gn_qkv_plain(*args))
+
+    def vq():
+        x, cb = _vq_inputs(g, 500, 1024)
+        return _vq_reading(x, cb, wrapper("vq_nearest")(x, cb))
+
+    if copy == 2:
+        return [("||e||^2 dropped from the VQ distance, N=500 bins=1024", "wrong", 0, vq())]
     if copy == 1:
         return [("FiLM scale a2 dropped, resblock B=2 T=1600 C=512", "excess", RES_TOL,
-                 resblock(2, 1600))]
+                 resblock(2, 1600)),
+                ("GN mean dropped from the multiply-add, gn_qkv B=2 T=1024 C=512", "excess",
+                 RES_TOL, gn_qkv()),
+                ("rank 7's codes dropped from the VQ cluster merge, N=500 bins=1024", "wrong",
+                 0, vq())]
     (q, k, v), (q2, k2, v2), (q3, k3, v3) = (
         torch.randn(b, t, 3, h, d, generator=g, device="cuda").to(bf).unbind(2)
         for b, t, h, d in ((4, 192, 8, 64), (4, 32, 16, 64), (2, 128, 16, 32)))
@@ -681,7 +742,6 @@ def _planted_readings(copy: int, g) -> list:
     dec = [torch.randn(*s, generator=g, device="cuda").to(bf)
            for s in [(4, 8, 64)] * 3 + [(4, 8, 563, 64)] * 2]
     ref = [x.float() for x in dec]  # the plain version on f32 copies, as phase (c)
-    qkv_args = _gn_qkv_args(g, 2, 1024, 512)
     return [
         ("causal mask off by one key, B=4 T=192 H=8 D=64", "rel_l2", ATTN_TOL,
          compare(fn(q, k, v, causal=True), flash_attention_plain(q, k, v, causal=True))),
@@ -695,8 +755,9 @@ def _planted_readings(copy: int, g) -> list:
          RES_TOL, resblock(2, 1024)),
         ("h's ragged last tile's GN partials dropped, resblock B=1 T=1600 C=512", "excess",
          RES_TOL, resblock(1, 1600)),
-        ("GN affine dropped, gn_qkv B=2 T=1024 C=512", "excess", RES_TOL,
-         compare(wrapper("gn_qkv")(*qkv_args), fused_gn_qkv_plain(*qkv_args))),
+        ("GN scale g dropped from the multiply-add, gn_qkv B=2 T=1024 C=512", "excess",
+         RES_TOL, gn_qkv()),
+        ("VQ ties to the higher index, N=500 bins=1024", "wrong", 0, vq()),
     ]
 
 
@@ -708,7 +769,7 @@ def phase_planted() -> None:
 
     from ttts_tpu_torch.ops.cuda import _build
 
-    copies = [_build.BUILD_DIR.parent / f"planted_csrc{i}" for i in range(2)]
+    copies = [_build.BUILD_DIR.parent / f"planted_csrc{i}" for i in range(COPIES)]
     for planted in copies:
         shutil.rmtree(planted, ignore_errors=True)
         shutil.copytree(_build.CSRC, planted)
@@ -805,6 +866,15 @@ def phase_profile(rows, tts) -> None:
     log(f"(f) note, the resblock's GEMMs alone (torch.matmul, bf16): 3200x512x512 "
         f"{device_us(lambda: mats[0] @ mats[1])} | 3200x1536x512 "
         f"{device_us(lambda: mats[2] @ mats[3])}")
+    # floors of VQ and gn_qkv, their products alone through cuBLAS: VQ's
+    # x @ cb.T in f32 (TF32 off, phase (a)) and gn_qkv's at B=4 T=1600
+    xv, cbv = (torch.randn(*shape, generator=g, device="cuda") for shape in ((500, 192),
+                                                                            (1024, 192)))
+    qa, qw = (torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+              for shape in ((6400, 512), (512, 1536)))
+    log(f"(f) note, floors: VQ's x @ cb.T alone (f32, TF32 off) 500x192x1024 "
+        f"{device_us(lambda: xv @ cbv.T)} | gn_qkv's product alone (bf16) 6400x512x1536 "
+        f"{device_us(lambda: qa @ qw)}")
     voice = synthetic_voice(5.0, 44100, seed=2)
     tts.profile_stages = False
     torch.cuda.synchronize()

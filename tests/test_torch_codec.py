@@ -38,7 +38,10 @@ def interpret_mode(monkeypatch):
     vq_mod.vq_nearest_pallas.clear_cache()
 
 
-@pytest.mark.parametrize("n,d,bins", [(100, 192, 1024), (37, 16, 32), (7, 32, 100)])
+# the codec's full width (500, 192, 1024), one row, and a bins that is no
+# multiple of the card kernel's 128-code slice (1000)
+@pytest.mark.parametrize("n,d,bins", [(100, 192, 1024), (37, 16, 32), (7, 32, 100),
+                                      (500, 192, 1024), (1, 192, 1024), (500, 192, 1000)])
 def test_vq_plain_matches_reference_and_pallas(interpret_mode, n, d, bins):
     rng = np.random.default_rng(n)
     x = rng.standard_normal((n, d)).astype(np.float32)

@@ -134,10 +134,11 @@ def test_resblock_plain_matches_reference_and_pallas(b, t, dtype):
         np.testing.assert_allclose(got, ref, atol=1e-3 * np.abs(ref).max(), rtol=BF16_STEP)
 
 
-def test_gn_qkv_plain_matches_pallas():
+@pytest.mark.parametrize("t,c", [(16, 128), (24, 512)])
+def test_gn_qkv_plain_matches_pallas(t, c):
     """fused_gn_qkv's plain version (w as (in, out), the JAX layout) against
-    the Pallas kernel in interpret mode."""
-    b, t, c = 2, 16, 128
+    the Pallas kernel in interpret mode, at C=512 the trunk's width."""
+    b = 2
     args = (_rand(0, b, t, c), 1 + _rand(1, c, scale=0.1), _rand(2, c, scale=0.1),
             _rand(3, c, 3 * c, scale=c ** -0.5), _rand(4, 3 * c, scale=0.1))
     want = np.asarray(jgn_qkv(*map(jnp.asarray, args), groups=32, interpret=True))

@@ -1,6 +1,7 @@
 """The PyTorch port runs where JAX is not installed: no file of
-ttts_tpu_torch, and not chip_smoke.py, may import jax, flax or optax, nor any
-ttts_tpu module (the port keeps its own copies of what it needs)."""
+ttts_tpu_torch, and not chip_smoke.py or chip_variants.py, may import jax,
+flax or optax, nor any ttts_tpu module (the port keeps its own copies of what
+it needs)."""
 
 import ast
 import pathlib
@@ -22,7 +23,7 @@ def _imports(path):
                 yield from (f"ttts_tpu.{a.name}" for a in node.names)
 
 
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_variants.py"]
 
 
 def test_package_has_files():

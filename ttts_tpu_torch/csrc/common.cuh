@@ -254,6 +254,25 @@ __device__ __forceinline__ void wgmma_n128_tb(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d (64x128 f32) += a (64x16, registers) . b (16x128, shared, MN-major)
+__device__ __forceinline__ void wgmma_n128_rs_tb(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_F8(d, 0), WG_F8(d, 8), WG_F8(d, 16), WG_F8(d, 24), WG_F8(d, 32), WG_F8(d, 40),
+        WG_F8(d, 48), WG_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -282,16 +301,29 @@ static inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a bf16 tensor of `rank` dims (innermost first; strides in bytes of dims
-// 1.. ) as a tensor map with box `box`, zero fill out of bounds
-static inline bool bf16_map(CUtensorMap* map, const void* ptr, cuuint32_t rank,
-                            const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+// a tensor of `type` and `rank` dims (innermost first; strides in bytes of
+// dims 1.. ) as a tensor map with box `box`, zero fill out of bounds
+static inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                              cuuint32_t rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                              const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+static inline bool bf16_map(CUtensorMap* map, const void* ptr, cuuint32_t rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box,
+                    swizzle);
+}
+
+static inline bool f32_map(CUtensorMap* map, const void* ptr, cuuint32_t rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, rank, dims, strides, box,
+                    swizzle);
 }

@@ -41,12 +41,17 @@
 //
 // Also replaces resblock.py fused_gn_qkv / _gn_qkv_kernel:
 //   out = (GroupNorm(x) * g + b) @ W + bias,  W (C, 3C), out (B, T, 3C),
-// f32 statistics, the normalised x rounded to bf16 for the product: the same
-// statistics pass as step 1, then gn_qkv_kernel, an mma.sync GEMM whose
-// A-tile prologue applies the GN affine, with the bias in the epilogue. At
-// the trunk's (B=2, T=1600, C=512) that is 5.0 GFLOP against ~16 MB of
-// traffic: bound by the tensor cores (~5 us), where the TPU kernel re-paid
-// the statistics for each of its three column blocks.
+// f32 statistics, the normalised x rounded to bf16 for the product. At B=4,
+// T=1600, C=512 that is 10.1 GFLOP against ~15 MB of traffic: bound by the
+// tensor cores (10.2 us), where the TPU kernel re-paid the statistics for
+// each of its three column blocks. Three launches: the statistics pass of
+// step 1; gn_table_kernel, which merges x's partials once per (batch, group)
+// into a per-(batch, channel) multiply-add; and gn_qkv_kernel, a persistent
+// wgmma GEMM fed by TMA that applies the multiply-add to the raw x on its
+// way from shared memory into wgmma's register A operand (no normalised x
+// is written), with the bias in the epilogue.
+#include <type_traits>
+
 #include "common.cuh"
 
 constexpr int GN_ROWS = 128;   // rows of a partial of h = the GEMMs' M tile
@@ -382,160 +387,203 @@ rb_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ 
 
 // ---------------------------------------------------------------- fused_gn_qkv
 
-constexpr int QKV_BM = 64, QKV_BN = 128, QKV_BK = 32, QKV_THREADS = 128;
-constexpr int QKV_LDA = QKV_BK + 8;  // padded rows: conflict-free ldmatrix
-constexpr int QKV_LDB = QKV_BN + 8;
+constexpr int QKV_STAGES = 4;
+constexpr uint32_t QKV_ROW = RB_BN * 2 + 16;  // bytes of an epilogue staging row (padded)
+constexpr uint32_t QKV_STAGING = 16 * QKV_ROW;  // a consumer warp's 16 rows
+constexpr int QKV_SMEM = QKV_STAGES * RB_STAGE + 2 * QKV_STAGES * 8 +
+                         RB_CWG * 4 * QKV_STAGING + 1024;  // + barriers, staging, slack
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+// Block b: GN(x)*g + b = x*mul + add per channel of batch b, merged once from
+// x's S partials, as (B, C/2) float4 {mul_c, mul_c+1, add_c, add_c+1}.
+__global__ void __launch_bounds__(GN_THREADS)
+gn_table_kernel(const float2* __restrict__ part, const float* __restrict__ sc,
+                const float* __restrict__ sh, float4* __restrict__ table, int T, int C, int G,
+                int S, float eps) {
+  __shared__ float s_mean[RB_MAX_G], s_rstd[RB_MAX_G];
+  const int b = blockIdx.x, cg = C / G;
+  gn_merge(part, b, G, S, X_ROWS, T, cg, eps, s_mean, s_rstd);
+  __syncthreads();
+  for (int p = threadIdx.x; p < C / 2; p += blockDim.x) {
+    float m[2], a[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 2 * p + e, g = c / cg;
+      m[e] = s_rstd[g] * sc[c];
+      a[e] = sh[c] - s_mean[g] * m[e];
+    }
+    table[(size_t)b * (C / 2) + p] = make_float4(m[0], m[1], a[0], a[1]);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+               : "r"(addr));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// two bf16 of x (low: the even channel) times mul plus add, in f32, rounded
+// to bf16 as JAX rounds the normalised x before the product
+__device__ __forceinline__ uint32_t gn_affine(uint32_t x2, float m0, float m1, float a0,
+                                              float a1) {
+  return pack_bf16(fmaf(__uint_as_float(x2 << 16), m0, a0),
+                   fmaf(__uint_as_float(x2 & 0xffff0000u), m1, a1));
 }
 
-// out (bf16) = (GN(x)*g + b) @ W + bias: W (C, N) row-major, (in, out) as in
-// the flax layout. 64x128 block tiles, four warps of 32x64 on mma.sync fed
-// by ldmatrix from double-buffered shared-memory tiles; the A-tile prologue
-// applies the GN affine as one multiply-add per channel.
-__global__ void __launch_bounds__(QKV_THREADS)
-gn_qkv_kernel(const bf16* __restrict__ x, const float2* __restrict__ part,
-              const float* __restrict__ sc, const float* __restrict__ sh,
-              const bf16* __restrict__ W, const float* __restrict__ bias, bf16* __restrict__ dst,
-              int Tlen, int C, int N, int G, int S, float eps) {
-  __shared__ __align__(16) bf16 As[2][QKV_BM * QKV_LDA];
-  __shared__ __align__(16) bf16 Bs[2][QKV_BK * QKV_LDB];
-  __shared__ float s_mul[RB_MAX_C], s_add[RB_MAX_C];
-  __shared__ float s_mean[RB_MAX_G], s_rstd[RB_MAX_G];
+// out (bf16, B x T x N) = bf16(x*mul + add) @ W + bias, W (C, N) as (in, out).
+// A persistent grid: block i takes output tiles [i*per, (i+1)*per) of 128 x
+// 128 (column tiles fastest, then row tiles, then batches). A producer warp
+// keeps a 4-stage TMA ring full across the block's tiles with raw x (a box
+// 64 x 128 x 1 of the (C, T, B) map: no tile reaches into the next batch;
+// rows past T arrive as zeros) and two 64x64 boxes of W read MN-major. Two
+// consumer warpgroups of 64 rows each build the A operand in registers:
+// ldmatrix of the raw bf16 x from the swizzled tile, the GN affine of the
+// tile's batch (staged from `table` in shared memory), rounded to bf16, then
+// wgmma m64n128k16 with A from registers; the next k-step's A is built while
+// this one's MMAs run. Epilogue: bias added, bf16 through stmatrix into a
+// per-warp staging tile, 16-byte stores of rows < T.
+__global__ void __launch_bounds__(RB_THREADS, 1)
+gn_qkv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+              const float4* __restrict__ table, const float* __restrict__ bias,
+              bf16* __restrict__ dst, int T, int C, int N, int tiles, int per) {
+  extern __shared__ uint8_t qkv_smem[];
+  __shared__ float4 s_ma[RB_MAX_C / 2];  // the current batch's {mul, mul, add, add} pairs
+  const uint32_t raw = smem_u32(qkv_smem), base = (raw + 1023) & ~1023u;
+  const uint32_t full0 = base + QKV_STAGES * RB_STAGE, empty0 = full0 + 8 * QKV_STAGES;
+  const uint32_t staging0 = empty0 + 8 * QKV_STAGES;
+  const int kc = C / RB_BK, nt = N / RB_BN, mt = (T + RB_BM - 1) / RB_BM;
+  const int t_begin = blockIdx.x * per, t_end = min(tiles, t_begin + per);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  const int m0 = blockIdx.x * QKV_BM, n0 = blockIdx.y * QKV_BN, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-  const int cg = C / G;
-
-  // GroupNorm x affine as one per-channel multiply-add
-  gn_merge(part, b, G, S, X_ROWS, Tlen, cg, eps, s_mean, s_rstd);
-  __syncthreads();
-  for (int c = tid; c < C; c += QKV_THREADS) {
-    const int g = c / cg;
-    const float mul = s_rstd[g] * sc[c];
-    s_mul[c] = mul;
-    s_add[c] = sh[c] - s_mean[g] * mul;
+  if (tid == 0) {
+    for (int s = 0; s < QKV_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, RB_CWG * 4);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
   }
   __syncthreads();
 
-  // A loader: thread -> (row ar, 16 consecutive k from ak0)
-  const int ar = tid >> 1, ak0 = (tid & 1) * 16;
-  const int at = m0 + ar;
-  const bool aok = at < Tlen;
-  auto load_a = [&](int k0, uint4 (&raw)[2]) {
-    if (aok) {
-      const uint4* p = reinterpret_cast<const uint4*>(x + ((size_t)b * Tlen + at) * C + k0 + ak0);
-      raw[0] = p[0];
-      raw[1] = p[1];
-    }
-  };
-  auto store_a = [&](int buf, int k0, const uint4 (&raw)[2]) {
-    const bf16* e = reinterpret_cast<const bf16*>(raw);
-    const int c0 = k0 + ak0;
-    uint32_t w[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float lo = 0.f, hi = 0.f;  // rows past T stay zero
-      if (aok) {
-        lo = fmaf(__bfloat162float(e[2 * i]), s_mul[c0 + 2 * i], s_add[c0 + 2 * i]);
-        hi = fmaf(__bfloat162float(e[2 * i + 1]), s_mul[c0 + 2 * i + 1], s_add[c0 + 2 * i + 1]);
-      }
-      w[i] = pack_bf16(lo, hi);
-    }
-    uint4* d = reinterpret_cast<uint4*>(&As[buf][ar * QKV_LDA + ak0]);
-    d[0] = make_uint4(w[0], w[1], w[2], w[3]);
-    d[1] = make_uint4(w[4], w[5], w[6], w[7]);
-  };
-  // B loader: 32 x 128 bf16 = 512 x 16 bytes, 4 per thread
-  auto load_b = [&](int k0, uint4 (&raw)[4]) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = tid + j * QKV_THREADS, kk = i >> 4, ch = i & 15;
-      raw[j] = *reinterpret_cast<const uint4*>(W + (size_t)(k0 + kk) * N + n0 + ch * 8);
-    }
-  };
-  auto store_b = [&](int buf, const uint4 (&raw)[4]) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = tid + j * QKV_THREADS, kk = i >> 4, ch = i & 15;
-      *reinterpret_cast<uint4*>(&Bs[buf][kk * QKV_LDB + ch * 8]) = raw[j];
-    }
-  };
-
-  float acc[2][8][4] = {};
-  uint4 araw[2] = {}, braw[4];
-  load_a(0, araw);
-  load_b(0, braw);
-  store_a(0, 0, araw);
-  store_b(0, braw);
-  __syncthreads();
-
-  const int nk = C / QKV_BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) {  // next tile's global loads fly during this tile's MMAs
-      load_a((kt + 1) * QKV_BK, araw);
-      load_b((kt + 1) * QKV_BK, braw);
-    }
-#pragma unroll
-    for (int ks = 0; ks < QKV_BK; ks += 16) {
-      uint32_t fa[2][4], fb[4][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4(fa[i], &As[buf][(wm + i * 16 + (lane & 15)) * QKV_LDA + ks + (lane >> 4) * 8]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ldsm_x4_trans(fb[j],
-                      &Bs[buf][(ks + (lane & 15)) * QKV_LDB + wn + j * 16 + (lane >> 4) * 8]);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mma_16816(acc[i][2 * j], fa[i], fb[j][0], fb[j][1]);
-          mma_16816(acc[i][2 * j + 1], fa[i], fb[j][2], fb[j][3]);
+  if (warp == RB_CWG * 4) {  // the producer warp: one lane keeps the ring full
+    if (lane == 0)
+      for (int tile = t_begin, it = 0; tile < t_end; ++tile) {
+        const int n0 = tile % nt * RB_BN, m0 = tile / nt % mt * RB_BM, b = tile / (nt * mt);
+        for (int kt = 0; kt < kc; ++kt, ++it) {
+          const int s = it % QKV_STAGES;
+          if (it >= QKV_STAGES) mbar_wait(empty0 + 8 * s, (it / QKV_STAGES - 1) & 1);
+          const uint32_t sa = base + s * RB_STAGE, sb = sa + RB_A_BYTES, full = full0 + 8 * s;
+          mbar_expect_tx(full, RB_STAGE);
+          tma_load_3d(sa, &tx, full, kt * RB_BK, m0, b);
+          tma_load_2d(sb, &tw, full, n0, kt * RB_BK);
+          tma_load_2d(sb + RB_B_BYTES / 2, &tw, full, n0 + 64, kt * RB_BK);
         }
-    }
-    if (kt + 1 < nk) {
-      store_a(buf ^ 1, (kt + 1) * QKV_BK, araw);
-      store_b(buf ^ 1, braw);
-    }
-    __syncthreads();
+      }
+    return;
   }
 
-  const int g8 = lane >> 2, t4 = lane & 3;
+  // consumers: warpgroup wg takes tile rows wg*64 .. wg*64 + 63, warp w4 16 of them
+  const int wg = warp >> 2, w4 = warp & 3, t4 = lane & 3;
+  // this lane's ldmatrix row of the tile, and the 8-column half of a k16 step
+  const uint32_t a_row = (wg * 64 + w4 * 16 + (lane & 15)) * 128, a_half = lane >> 4;
+  const uint32_t staging = staging0 + warp * QKV_STAGING;
+  const uint8_t* staged = qkv_smem + (staging - raw);
+  float acc[64];  // (i = 4n + e): row w4*16 + (lane>>2) + 8(e>>1), column 8n + 2t4 + (e&1)
+  uint32_t a[2][RB_BK / 16][4];  // A of two k-steps: the one in flight, the next
+
+  // A of k-step kt (ring stage s) into a[buf]: ldmatrix's four 8x8 blocks of
+  // a k16 step are wgmma's register fragment a0..a3 (rows +0/+8, columns
+  // +0/+8); the swizzle moves a row's 16-byte chunk q to q ^ (row & 7)
+  auto build = [&](auto buf, int s, int kt) {
+    const uint32_t sa = base + s * RB_STAGE + a_row;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int t = m0 + wm + i * 16 + g8 + r * 8;
-      if (t >= Tlen) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + wn + j * 8 + 2 * t4;
-        const size_t o = ((size_t)b * Tlen + t) * N + c;
-        *reinterpret_cast<uint32_t*>(dst + o) =
-            pack_bf16(acc[i][j][2 * r] + bias[c], acc[i][j][2 * r + 1] + bias[c + 1]);
-      }
+    for (int kk = 0; kk < RB_BK / 16; ++kk) {
+      uint32_t r[4];
+      ldsm_x4(r, sa + (((2 * kk + a_half) ^ (lane & 7)) << 4));
+      const int p = (kt * RB_BK + kk * 16) / 2 + t4;  // channels 2p, 2p+1 and 2p+8, 2p+9
+      const float4 lo = s_ma[p], hi = s_ma[p + 4];
+      uint32_t(&f)[4] = a[decltype(buf)::value][kk];
+      f[0] = gn_affine(r[0], lo.x, lo.y, lo.z, lo.w);
+      f[1] = gn_affine(r[1], lo.x, lo.y, lo.z, lo.w);
+      f[2] = gn_affine(r[2], hi.x, hi.y, hi.z, hi.w);
+      f[3] = gn_affine(r[3], hi.x, hi.y, hi.z, hi.w);
     }
+  };
+  using B0 = std::integral_constant<int, 0>;
+  using B1 = std::integral_constant<int, 1>;
+
+  int cur_b = -1;
+  for (int tile = t_begin, it = 0; tile < t_end; ++tile, it += kc) {
+    const int n0 = tile % nt * RB_BN, m0 = tile / nt % mt * RB_BM, b = tile / (nt * mt);
+    if (b != cur_b) {  // stage batch b's affine
+      consumer_sync();  // every consumer is done with the previous batch's
+      for (int p = tid; p < C / 2; p += RB_CWG * 128) s_ma[p] = table[(size_t)b * (C / 2) + p];
+      consumer_sync();
+      cur_b = b;
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    mbar_wait(full0 + 8 * (it % QKV_STAGES), (it / QKV_STAGES) & 1);
+    build(B0{}, it % QKV_STAGES, 0);
+    // k-step kt: its MMAs from a[buf], then (while they run) the next A
+    auto step = [&](auto buf, int kt) {
+      const int j = it + kt, s = j % QKV_STAGES;
+      // MN-major B: 8 K-rows 1024 bytes apart, the two 64-column spans 8 KB apart
+      const uint64_t db = wg_desc(base + s * RB_STAGE + RB_A_BYTES, RB_B_BYTES / 2, 1024, 1);
+#pragma unroll
+      for (int kk = 0; kk < RB_BK / 16; ++kk) reg_fence(a[decltype(buf)::value][kk]);
+      reg_fence(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < RB_BK / 16; ++kk)
+        wgmma_n128_rs_tb(acc, a[decltype(buf)::value][kk], db + ((kk * 16 * 128) >> 4));
+      wg_commit();
+      wg_wait_one();  // step kt-1's MMAs are done: its stage and A registers are free
+      reg_fence(acc);
+      if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((j - 1) % QKV_STAGES));
+      if (kt + 1 < kc) {
+        mbar_wait(full0 + 8 * ((j + 1) % QKV_STAGES), ((j + 1) / QKV_STAGES) & 1);
+        build(std::integral_constant<int, 1 - decltype(buf)::value>{}, (j + 1) % QKV_STAGES,
+              kt + 1);
+      }
+    };
+    for (int kt = 0; kt < kc; kt += 2) {
+      step(B0{}, kt);
+      if (kt + 1 < kc) step(B1{}, kt + 1);
+    }
+    wg_wait_all();
+    reg_fence(acc);
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((it + kc - 1) % QKV_STAGES));
+
+    // epilogue: + bias, bf16, stmatrix of the warp's 16 x 128 into its
+    // staging rows (x4: blocks n and n+1, rows +0 and +8), then 16 bytes a
+    // lane per store, two full 256-byte rows a warp
+#pragma unroll
+    for (int n = 0; n < RB_BN / 8; n += 2) {
+      const float2 b0 = *reinterpret_cast<const float2*>(bias + n0 + 8 * n + 2 * t4);
+      const float2 b1 = *reinterpret_cast<const float2*>(bias + n0 + 8 * n + 8 + 2 * t4);
+      const float* c0 = acc + 4 * n;
+      stsm_x4(staging + (lane & 7) * QKV_ROW + ((lane >> 3) & 1) * 8 * QKV_ROW +
+                  (n + (lane >> 4)) * 16,
+              pack_bf16(c0[0] + b0.x, c0[1] + b0.y), pack_bf16(c0[2] + b0.x, c0[3] + b0.y),
+              pack_bf16(c0[4] + b1.x, c0[5] + b1.y), pack_bf16(c0[6] + b1.x, c0[7] + b1.y));
+    }
+    __syncwarp();
+    const int row0 = m0 + wg * 64 + w4 * 16;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int r = 2 * k + (lane >> 4), chunk = lane & 15;
+      const uint4 v = *reinterpret_cast<const uint4*>(staged + r * QKV_ROW + chunk * 16);
+      if (row0 + r < T)
+        *reinterpret_cast<uint4*>(dst + ((size_t)b * T + row0 + r) * N + n0 + chunk * 8) = v;
+    }
+    __syncwarp();  // the staging rows are read before the next tile's stmatrix
+  }
 }
 
 // ---------------------------------------------------------------- host
@@ -603,16 +651,40 @@ extern "C" int ttts_resblock(const void* x, const void* g1, const void* b1, cons
 }
 
 extern "C" int ttts_gn_qkv(const void* x, const void* g, const void* b, const void* w,
-                           const void* bias, void* out, void* part, int B, int Tlen, int C,
-                           int N, int G, float eps, void* stream) {
-  if (C % QKV_BK || N % QKV_BN || !gn_shapes_ok(C, G)) return (int)cudaErrorInvalidValue;
+                           const void* bias, void* out, void* part, void* table, int B,
+                           int Tlen, int C, int N, int G, float eps, void* stream) {
+  if (C % RB_BK || N % RB_BN || !gn_shapes_ok(C, G)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = TTTS_STREAM(stream);
   const int S = (Tlen + X_ROWS - 1) / X_ROWS;
-  gn_stats_kernel<<<dim3(S, B), GN_THREADS, 0, st>>>(static_cast<const bf16*>(x),
-                                                     static_cast<float2*>(part), Tlen, C, G, S);
-  gn_qkv_kernel<<<dim3((Tlen + QKV_BM - 1) / QKV_BM, N / QKV_BN, B), QKV_THREADS, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float2*>(part),
-      static_cast<const float*>(g), static_cast<const float*>(b), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), Tlen, C, N, G, S, eps);
+  CUtensorMap tx, tw;
+  const cuuint64_t x_dims[3] = {(cuuint64_t)C, (cuuint64_t)Tlen, (cuuint64_t)B};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)Tlen * C * 2};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)N, (cuuint64_t)C};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t x_box[3] = {RB_BK, RB_BM, 1}, w_box[2] = {64, RB_BK};
+  if (!bf16_map(&tx, x, 3, x_dims, x_strides, x_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !bf16_map(&tw, w, 2, w_dims, w_strides, w_box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gn_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, QKV_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 132;
+  }();
+  const int tiles = B * ((Tlen + RB_BM - 1) / RB_BM) * (N / RB_BN);
+  const int per = (tiles + sms - 1) / sms;  // tiles a block: the grid is one wave
+  float2* p = static_cast<float2*>(part);
+  float4* tab = static_cast<float4*>(table);
+  gn_stats_kernel<<<dim3(S, B), GN_THREADS, 0, st>>>(static_cast<const bf16*>(x), p, Tlen, C, G,
+                                                     S);
+  gn_table_kernel<<<B, GN_THREADS, 0, st>>>(p, static_cast<const float*>(g),
+                                            static_cast<const float*>(b), tab, Tlen, C, G, S,
+                                            eps);
+  gn_qkv_kernel<<<(tiles + per - 1) / per, RB_THREADS, QKV_SMEM, st>>>(
+      tx, tw, tab, static_cast<const float*>(bias), static_cast<bf16*>(out), Tlen, C, N, tiles,
+      per);
   return (int)cudaGetLastError();
 }

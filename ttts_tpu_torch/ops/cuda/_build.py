@@ -33,11 +33,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: a plain int would be cut to 32 bits)
 _SIGNATURES = {
-    "ttts_vq_nearest": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "ttts_vq_nearest": (_P, _P, _P, _I, _I, _I, _P),
     "ttts_decode_attention_bf16": (_P,) * 6 + (_I, _I, _I, _I, _F, _P),
     "ttts_flash_attention": (_P,) * 5 + (_I,) * 12 + (_F, _P),
     "ttts_resblock": (_P,) * 15 + (_I, _I, _I, _I, _F, _P),
-    "ttts_gn_qkv": (_P,) * 7 + (_I,) * 5 + (_F, _P),
+    "ttts_gn_qkv": (_P,) * 8 + (_I,) * 5 + (_F, _P),
 }
 
 # seconds this process spent in nvcc (0.0 when an existing build was reused)

@@ -12,8 +12,10 @@ first activation written once in bf16, the Dense on wgmma (TMA-fed, its
 epilogue also giving h's partials), the second activation, and the conv3
 as one wgmma GEMM whose taps are TMA loads of a (C, T, B) tensor map, so
 rows -1 and T of each batch arrive as zeros. The wrapper allocates h, both
-activations and the partials. fused_gn_qkv shares the statistics pass and
-runs an mma.sync GEMM with the GN affine in its A-tile prologue.
+activations and the partials. fused_gn_qkv is three launches: the same
+statistics pass, one merge of x's partials into a (B, C) multiply-add, and a
+persistent wgmma GEMM fed by TMA that applies it to the raw x on its way
+into wgmma's register A operand.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 
 from ttts_tpu_torch.ops.cuda import _build
 
-_BN = 128  # RB_BN / QKV_BN in resblock.cu: output widths must be multiples of it
+_BN = 128  # RB_BN in resblock.cu: output widths must be multiples of it
+_BK = 64  # RB_BK in resblock.cu: fused_gn_qkv's C must be a multiple of it
 _GN_ROWS, _X_ROWS = 128, 32  # rows of a GroupNorm partial of h and of x (resblock.cu)
 _CG = 16  # RB_CG in resblock.cu: channels per group the resblock kernel takes
 
@@ -105,7 +108,7 @@ def fused_gn_qkv_plain(x, g, b, w, bias, groups: int = 32, eps: float = 1e-5):
 
 def fused_gn_qkv(x, g, b, w, bias, groups: int = 32, eps: float = 1e-5):
     """See fused_gn_qkv_plain (w is (in, out)). On CUDA x and w are bf16, C
-    is a multiple of 32 (at most 1024), C / groups a multiple of 8, K a
+    is a multiple of 64 (at most 1024), C / groups a multiple of 8, K a
     multiple of 128 and groups at most 64."""
     if x.device.type == "cpu":
         return fused_gn_qkv_plain(x, g, b, w, bias, groups, eps)
@@ -115,17 +118,19 @@ def fused_gn_qkv(x, g, b, w, bias, groups: int = 32, eps: float = 1e-5):
         raise TypeError("fused_gn_qkv: the kernel takes bfloat16 x and w")
     bsz, t, c = x.shape
     k = w.shape[1]
-    if (c % 32 or c > 1024 or c % (8 * groups) or groups > 64 or k % _BN or w.shape != (c, k)
-            or bias.shape != (k,)):
+    if (c % _BK or c > 1024 or c % (8 * groups) or groups > 64 or k % _BN
+            or w.shape != (c, k) or bias.shape != (k,)):
         raise ValueError(f"fused_gn_qkv: unsupported shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, groups {groups}")
     x, w = x.contiguous(), w.contiguous()
     g, b, bias = (v.float().contiguous() for v in (g, b, bias))
-    part = torch.empty((bsz, groups, -(-t // _X_ROWS), 2), dtype=torch.float32,
-                       device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part = torch.empty((bsz, groups, -(-t // _X_ROWS), 2), **f32)
+    table = torch.empty((bsz, c // 2, 4), **f32)  # per channel pair: mul, mul, add, add
     out = torch.empty((bsz, t, k), dtype=x.dtype, device=x.device)
     _build.launch("ttts_gn_qkv", x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(),
-                  bias.data_ptr(), out.data_ptr(), part.data_ptr(), bsz, t, c, k, groups, eps)
+                  bias.data_ptr(), out.data_ptr(), part.data_ptr(), table.data_ptr(), bsz, t,
+                  c, k, groups, eps)
     fused_gn_qkv.launches += 1
     return out
 

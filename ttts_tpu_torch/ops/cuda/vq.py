@@ -1,9 +1,11 @@
 """VQ codebook nearest neighbour.
 
 Kernel: ttts_tpu_torch/csrc/vq.cu, replacing ttts_tpu/ops/pallas/vq.py
-(vq_nearest_pallas). The kernel drops the row-constant ||x||^2 that the plain
-version keeps, so the two may disagree only where two codes' distances tie
-to within float rounding.
+(vq_nearest_pallas): one launch of clusters of 8 code slices per 32-row
+tile, x and the codebook brought in by TMA, merged through distributed shared
+memory. The kernel drops the row-constant ||x||^2 that the plain version
+keeps, so the two may disagree only where two codes' distances tie to within
+float rounding.
 """
 
 from __future__ import annotations
@@ -12,8 +14,7 @@ import torch
 
 from ttts_tpu_torch.ops.cuda import _build
 
-_MAX_SMEM = 48 * 1024
-_ROWS = 8  # VQ_ROWS in vq.cu
+_CHUNK = 32  # VQ_CHUNK in vq.cu: D must be a multiple of it
 
 
 def vq_nearest_plain(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -25,7 +26,8 @@ def vq_nearest_plain(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
 
 
 def vq_nearest(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """x (N, D) f32, codebook (bins, D) f32 → (N,) int32 nearest-code index."""
+    """x (N, D) f32, codebook (bins, D) f32 → (N,) int32 nearest-code index.
+    On CUDA D is a multiple of 32 and both tensors 16-byte aligned."""
     if x.device.type == "cpu":
         return vq_nearest_plain(x, codebook)
     if x.device.type != "cuda" or codebook.device != x.device:
@@ -34,16 +36,16 @@ def vq_nearest(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
         raise TypeError("vq_nearest: the kernel takes float32 x and codebook")
     n, d = x.shape
     bins, d2 = codebook.shape
-    if d != d2 or _ROWS * d * 4 > _MAX_SMEM:
-        raise ValueError(f"vq_nearest: bad shapes x {tuple(x.shape)}, "
-                         f"codebook {tuple(codebook.shape)}")
-    x = x.contiguous()
-    cbt = codebook.t().contiguous()  # (D, bins): a warp reads 32 consecutive codes
-    keys = torch.empty(n, dtype=torch.int64, device=x.device)  # per-row (distance, index)
+    x, codebook = x.contiguous(), codebook.contiguous()
+    if d != d2 or d % _CHUNK or bins < 1 or x.data_ptr() % 16 or codebook.data_ptr() % 16:
+        raise ValueError(f"vq_nearest: unsupported x {tuple(x.shape)}, codebook "
+                         f"{tuple(codebook.shape)} (D a multiple of {_CHUNK}, "
+                         "16-byte aligned tensors)")
     out = torch.empty(n, dtype=torch.int32, device=x.device)
-    _build.launch("ttts_vq_nearest", x.data_ptr(), cbt.data_ptr(), keys.data_ptr(),
-                  out.data_ptr(), n, d, bins)
-    vq_nearest.launches += 1
+    if n:
+        _build.launch("ttts_vq_nearest", x.data_ptr(), codebook.data_ptr(), out.data_ptr(),
+                      n, d, bins)
+        vq_nearest.launches += 1
     return out
 
 

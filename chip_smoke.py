@@ -18,10 +18,13 @@ Phases, one printed line each, any failure raising (non-zero exit):
       5 s 44.1 kHz synthetic voice and pinyin texts: `tts(...)` at the
       default preset "fast" twice, then at "ultra_fast" once, then
       `tts_batch` of two texts at "fast", all with max_generate_length=400.
-      Checks finite waveforms of the lengths the code lengths imply, and that
+      Checks finite waveforms of the lengths the code lengths imply, that
       every kernel and attention mode of the path was launched by these
-      calls. Then one trunk AttentionBlock with fused_gn off and on, the path
-      of the fused GroupNorm -> qkv kernel (no model sets it);
+      calls, and that each launched once per call of its model call sites
+      (counted by hooks on the modules: no full-width call site took its
+      plain version); times the gates' host cost. Then one trunk
+      AttentionBlock with fused_gn off and on, the path of the fused
+      GroupNorm -> qkv kernel (no model sets it);
   (e) the card's path against the port's f32 CPU path (which tests/
       test_torch_*.py hold to the JAX package) at the same full width and
       weights, on small inputs, stage by stage from shared inputs: prompt
@@ -36,7 +39,15 @@ Phases, one printed line each, any failure raising (non-zero exit):
       preset "fast";
   (g) the limits of the phase-(c) checks, each shown to fail its planted
       fault (FAULTS) in one of three copies of the kernels, built apart at
-      once.
+      once;
+  (h) codec reconstruction at full width (run after (e)): SynthesizerTrn
+      .infer on the seeded 5 s voice at 32 kHz and .decode of its codes, on
+      the card and on the f32 CPU path with the same weights and z_p noise:
+      codes equal, waveforms within CODEC_TOL, finite, frames x hop long,
+      the VQ kernel launched by `infer`; median ms of each;
+  (i) TextToSpeech on tests/test_api.py's TINY config on the card (after
+      (h)): the shape gates send every shape outside a kernel's domain to its
+      plain version.
 The last two lines are the kernel table as JSON and then
 {"ok": true, "device": {...}}. Imports no JAX; needs a CUDA card.
 """
@@ -525,6 +536,82 @@ def _check_wavs(tts, wavs) -> None:
             raise AssertionError(f"waveform {wav.shape} vs code_len {cl}")
 
 
+def _watch_call_sites(tts):
+    """Count the calls of each path kernel's model call sites, apart from
+    the dispatch and the wrappers' counts: forward pre-hooks on the GPT
+    blocks (a cached one-row step is a decode, any other call a causal
+    attention), CLVP's unmasked attentions, the diffusion AttentionBlocks
+    (bias; gn_qkv with fused_gn) and ScaleShiftResBlocks, and a wrapper
+    around models.quantize.nearest. Returns (counts by kernel, undo)."""
+    from ttts_tpu_torch.models import clvp, diffusion_net, gpt, quantize
+
+    sites = dict.fromkeys(KERNELS, 0)
+
+    def gpt_block(mod, args, kwargs):
+        cache = args[1] if len(args) > 1 else kwargs.get("cache")
+        one_row = cache is not None and args[0].shape[1] == 1
+        sites["decode_attention" if one_row else "flash_attention_causal"] += 1
+
+    def clvp_attention(mod, args, kwargs):
+        if (args[1] if len(args) > 1 else kwargs.get("mask")) is None:
+            sites["flash_attention_nobias"] += 1
+
+    def attention_block(mod, args, kwargs):
+        sites["flash_attention_bias"] += 1
+        sites["gn_qkv"] += int(mod.fused_gn)
+
+    def resblock(mod, args, kwargs):
+        sites["scale_shift_resblock"] += 1
+
+    hooks = {gpt.GPT2Block: gpt_block, clvp.Attention: clvp_attention,
+             diffusion_net.AttentionBlock: attention_block,
+             diffusion_net.ScaleShiftResBlock: resblock}
+    handles = [m.register_forward_pre_hook(hooks[type(m)], with_kwargs=True)
+               for model in (tts.gpt, tts.clvp, tts.diffusion) for m in model.modules()
+               if type(m) in hooks]
+    nearest = quantize.nearest
+
+    def counted(x, embed):
+        sites["vq_nearest"] += 1
+        return nearest(x, embed)
+
+    quantize.nearest = counted
+
+    def undo():
+        for h in handles:
+            h.remove()
+        quantize.nearest = nearest
+
+    return sites, undo
+
+
+def _gate_host_us(reps: int = 5000) -> dict:
+    """Host microseconds of one gate decision of each dispatch (attention's
+    kernel_fits, decode_attention.pick, resblock_fits, kernel_fits of VQ) on
+    card tensors of the path's full-width shapes, timed over `reps` calls."""
+    from ttts_tpu_torch.ops.cuda import attention, decode_attention, resblock, vq
+
+    e = partial(torch.empty, device="cuda")
+    qkv = e(2, 1600, 16, 96, dtype=torch.bfloat16)
+    q, k, v = qkv[..., :32], qkv[..., 32:64], qkv[..., 64:]
+    c = 512
+    res = (e(2, 1600, c, dtype=torch.bfloat16), e(c), e(c), e(c, c, dtype=torch.bfloat16),
+           e(c), e(2, c), e(2, c), e(3, c, c, dtype=torch.bfloat16), e(c))
+    x, book = e(125, 192), e(1024, 192)
+    gates = {"attention": lambda: attention.kernel_fits(q, k, v),
+             "decode_attention": lambda: decode_attention.pick(torch.bfloat16, 64),
+             "scale_shift_resblock": lambda: resblock.resblock_fits(*res, groups=32),
+             "vq_nearest": lambda: vq.kernel_fits(x, book)}
+    out = {}
+    for name, gate in gates.items():
+        assert gate()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            gate()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+    return out
+
+
 def phase_end_to_end():
     t0 = time.perf_counter()
     tts = make_tts("cuda")
@@ -532,14 +619,17 @@ def phase_end_to_end():
     voice = synthetic_voice(5.0, 44100, seed=2)
     sr_out = tts.cfg.acoustic_mel.sample_rate
     tts.profile_stages = True
+    sites, undo = _watch_call_sites(tts)
     reset_counts()
-    snaps, rtf = [], {}
+    snaps, site_snaps, rtf, walls = [], [], {}, []
     for call, preset in enumerate(("fast", "fast", "ultra_fast")):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         wav = tts.tts(TEXT, voice, 44100, preset=preset, max_generate_length=400, seed=call)
         wall = time.perf_counter() - t0
         snaps.append(counts())
+        site_snaps.append(dict(sites))
+        walls.append(wall)
         _check_wavs(tts, [wav])
         stages = " ".join(f"{k} {v * 1e3:.1f} ms" for k, v in tts.last_stage_times.items())
         audio_s = wav.shape[0] / sr_out
@@ -558,13 +648,31 @@ def phase_end_to_end():
     log(f"(d) tts_batch of 2 texts, preset fast: code_lens {tts.last_code_lens}, "
         f"{audio_s:.2f} s audio, wall {wall:.3f} s, {wall / 2:.3f} s per stream, "
         f"RTF {wall / audio_s:.4f} | {stages}")
+    undo()
     launches = counts()
     per_fast = {n: snaps[1][n] - snaps[0][n] for n in KERNELS}
+    sites_fast = {n: site_snaps[1][n] - site_snaps[0][n] for n in KERNELS}
     missing = [n for n, c in launches.items()
                if c == 0 and n not in OFF_PATH + NO_CALLER]
     if missing:
         raise AssertionError(f"kernels never launched by the tts calls: {missing}")
     log(f"(d) launches in the four calls: {launches}; in the steady fast call: {per_fast}")
+    # at full width every call site is in its kernel's domain: a call site
+    # that took the plain version shows as fewer launches than calls
+    short = {n: (launches[n], sites[n]) for n in KERNELS if launches[n] != sites[n]}
+    if short:
+        raise AssertionError(f"launches != call-site calls (launches, calls): {short}")
+    log(f"(d) every call site launched its kernel: call-site calls in the four calls "
+        f"{sites}, in the steady fast call {sites_fast}")
+    us = _gate_host_us()
+    # the decode choice is made once per inference_speech call, every other gate per call
+    evals = {"attention": sum(sites_fast[n] for n in sites_fast if n.startswith("flash")),
+             "decode_attention": 1, "scale_shift_resblock": sites_fast["scale_shift_resblock"],
+             "vq_nearest": sites_fast["vq_nearest"]}
+    gate_ms = sum(us[n] * evals[n] for n in us) / 1e3
+    log(f"(d) gate host cost: {', '.join(f'{n} {us[n]:.3f} us' for n in us)} per decision "
+        f"(time.perf_counter over 5000 calls); {evals} decisions in the steady fast call "
+        f"= {gate_ms:.3f} ms of its {walls[1] * 1e3:.1f} ms wall")
     launches.update(_fused_gn_ab(tts))
     return tts, launches, per_fast, rtf
 
@@ -595,6 +703,161 @@ def _fused_gn_ab(tts) -> dict:
     if not err <= ATTN_TOL or n == 0:
         raise AssertionError(f"fused_gn: rel_l2 {err:.3e}, {n} gn_qkv launches")
     return {"gn_qkv": n}
+
+
+# ---------------------------------------------------------------------- (h)
+
+# The codec's waveform on the card against the f32 CPU path, both f32 with
+# TF32 off (phase (a)), relative L2 over the waveform. 1e-3 is the repo's
+# contract for activations and waveforms (BASELINE.md:36-37). Codes: 0
+# mismatches, as phase (e)'s prompt codes.
+CODEC_TOL = 1e-3
+
+
+def phase_codec(card: str) -> dict:
+    """(h) Codec reconstruction at full width: SynthesizerTrn(default_config()
+    .vqvae) from seeded weights on the card and the same weights on the CPU
+    in f32; `infer` on the seeded 5 s voice resampled to 32 kHz, then
+    `decode` of its codes, each with the same z_p noise on both. The VQ
+    kernel's launches are read across the first `infer` (its path); returns
+    them by kernel."""
+    import copy
+
+    from ttts_tpu_torch.config import default_config
+    from ttts_tpu_torch.models.vqvae import SynthesizerTrn
+    from ttts_tpu_torch.ops.mel import vits_spectrogram
+    from ttts_tpu_torch.ops.resample import resample
+
+    cfg = default_config()
+    a, c = cfg.audio, cfg.vqvae
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        cpu = SynthesizerTrn(c, spec_channels=a.filter_length // 2 + 1).eval()
+    gpu = copy.deepcopy(cpu).cuda()
+    wav = resample(torch.from_numpy(synthetic_voice(5.0, 44100, seed=2))[None], 44100,
+                   a.sampling_rate)
+    wav = wav[:, : wav.shape[1] // (2 * a.hop_length) * 2 * a.hop_length]
+    spec = vits_spectrogram(wav, a.filter_length, a.hop_length, a.win_length).transpose(1, 2)
+    frames = spec.shape[1]
+    g = torch.Generator().manual_seed(8)
+    text = torch.randint(0, c.n_text_tokens, (1, 16), generator=g)
+    noise = torch.randn(1, frames, c.inter_channels, generator=g)
+    cpu_args = (wav[..., None], spec, torch.tensor([frames]), text, torch.tensor([16]), 0.5)
+    gpu_args = tuple(x.cuda() if torch.is_tensor(x) else x for x in cpu_args)
+    codes = {}  # each model's codes in its first infer: its quantizer's output
+
+    def keep(name):
+        def hook(module, args, out):
+            codes.setdefault(name, out[1])
+        return hook
+
+    for name, model in (("gpu", gpu), ("cpu", cpu)):
+        model.quantizer.register_forward_hook(keep(name))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counts()
+        out_g = gpu.infer(*gpu_args, noise=noise.cuda())
+        torch.cuda.synchronize()
+        launches = counts()
+        out_c = cpu.infer(*cpu_args, noise=noise)
+        codes_g, codes_c = codes["gpu"], codes["cpu"]
+        dec_g = gpu.decode(codes_g, text.cuda(), spec.cuda(), 0.5, noise=noise.cuda())
+        dec_c = cpu.decode(codes_c, text, spec, 0.5, noise=noise)
+        run_infer = partial(gpu.infer, *gpu_args, noise=noise.cuda())
+        run_decode = partial(gpu.decode, codes_g, text.cuda(), spec.cuda(), 0.5,
+                             noise=noise.cuda())
+        infer_ms = median_ms(run_infer, reps=5, warmup=1)
+        decode_ms = median_ms(run_decode, reps=5, warmup=1)
+        busy = {name: _device_busy(fn) for name, fn in (("infer", run_infer),
+                                                        ("decode", run_decode))}
+    mism = int((codes_g.cpu() != codes_c).sum())
+    errs = {"infer": rel_err(out_g, out_c), "decode": rel_err(dec_g, dec_c)}
+    want = (1, frames * a.hop_length, 1)
+    finite = all(bool(torch.isfinite(x).all()) for x in (out_g, dec_g))
+    log(f"(h) codec reconstruction, default_config, 5 s voice at {a.sampling_rate} Hz "
+        f"({frames} frames, {codes_c.shape[-1]} codes): code mismatches card vs CPU "
+        f"{mism}/{codes_c.numel()} (tol 0); waveform relative error infer "
+        f"{errs['infer']:.3e}, decode {errs['decode']:.3e} (tol {CODEC_TOL}); shapes "
+        f"{tuple(out_g.shape)}, {tuple(dec_g.shape)} (want {want}), finite {finite} | "
+        f"infer {infer_ms:.2f} ms, decode {decode_ms:.2f} ms (median of 5, CUDA events; "
+        f"{card}) | "
+        f"VQ launches in the first infer {launches['vq_nearest']}")
+    for name, (ms, n, top) in busy.items():
+        log(f"(h) {name}: device busy {ms:.2f} ms in {n} kernel launches (torch.profiler, "
+            f"one call); largest: " + ", ".join(f"{k[:40]} {us / 1e3:.2f} ms x{c}"
+                                                 for k, (c, us) in top))
+    bad = [k for k, v in errs.items() if not v <= CODEC_TOL]
+    if (mism or bad or not finite or tuple(out_g.shape) != want
+            or tuple(dec_g.shape) != want or launches["vq_nearest"] < 1):
+        raise AssertionError(f"codec: {mism} code mismatches, errors over tol {bad}, "
+                             f"finite={finite}, shapes {tuple(out_g.shape)} "
+                             f"{tuple(dec_g.shape)}, VQ launches {launches['vq_nearest']}")
+    return launches
+
+
+def _device_busy(fn, top: int = 5):
+    """(device ms, kernel launches, the `top` largest kernels) of one call
+    of `fn` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = _by_kernel(prof)
+    return (sum(us for _, us in by_kernel.values()) / 1e3,
+            sum(n for n, _ in by_kernel.values()), list(by_kernel.items())[:top])
+
+
+def tiny_config():
+    """tests/test_api.py's TINY configuration in the port's classes: widths
+    outside every kernel's domain but the causal and no-bias attention's
+    (codec D=16, GPT dk=32, trunk C=64 with D=16)."""
+    from ttts_tpu_torch import config as pc
+
+    return pc.TTTSConfig(
+        audio=pc.AudioConfig(sampling_rate=32000, filter_length=1024, hop_length=640,
+                             win_length=1024, n_mel_channels=32),
+        acoustic_mel=pc.AcousticMelConfig(sample_rate=24000, n_fft=256, hop_length=256,
+                                          n_mels=100),
+        vqvae=pc.VQVAEConfig(inter_channels=16, hidden_channels=16, filter_channels=32,
+                             n_heads=2, n_layers=2, p_dropout=0.0,
+                             upsample_initial_channel=32, gin_channels=16,
+                             codebook_bins=32, posterior_wn_layers=2, flow_layers=1,
+                             flow_wn_layers=1),
+        gpt=pc.GPTConfig(model_dim=64, layers=1, heads=2, max_text_tokens=64,
+                         max_mel_tokens=128, number_mel_codes=1026,
+                         start_mel_token=1024, stop_mel_token=1025),
+        diffusion_net=pc.DiffusionNetConfig(in_channels=100, out_channels=200,
+                                            model_channels=64, num_heads=4, num_layers=1,
+                                            in_latent_channels=64),
+        clvp=pc.CLVPConfig(dim_text=32, dim_speech=32, dim_latent=16,
+                           num_text_tokens=256, num_speech_tokens=1026,
+                           text_enc_depth=1, speech_enc_depth=1, text_heads=2,
+                           speech_heads=2),
+        vocos=pc.VocosConfig(input_channels=100, dim=32, intermediate_dim=96,
+                             num_layers=1, n_fft=1024, hop_length=256),
+        train=pc.TrainConfig(segment_size=640 * 4))
+
+
+def phase_tiny() -> dict:
+    """(i) TextToSpeech(TINY, device="cuda"): "ultra_fast" and "fast" `tts`
+    with a short max_generate_length. The shape gates route every shape
+    outside a kernel's domain to its plain version; returns the launches."""
+    from ttts_tpu_torch.api import TextToSpeech
+
+    tts = TextToSpeech(tiny_config(), device="cuda", seed=0)
+    voice = synthetic_voice(1.0, 44100, seed=3)
+    reset_counts()
+    for preset in ("ultra_fast", "fast"):
+        wav = tts.tts(TEXT, voice, 44100, preset=preset, max_generate_length=32, seed=1)
+        _check_wavs(tts, [wav])
+    torch.cuda.synchronize()
+    launches = {n: v for n, v in counts().items() if v}
+    log(f"(i) TINY TextToSpeech on the card: 'ultra_fast' and 'fast' tts, code_len "
+        f"{tts.last_code_lens[0]}, {wav.shape[0]} samples, finite; kernels launched "
+        f"{launches} (the causal and no-bias attention fit TINY's GPT dk 32 and CLVP "
+        "dim_head 64; every other shape took its plain version)")
+    return launches
 
 
 # ---------------------------------------------------------------------- (e)
@@ -851,8 +1114,6 @@ def phase_profile(rows, tts) -> None:
     """Device time of each kernel and its plain version at the last
     phase-(c) shape, and the device's busy share of a steady tts call at the
     default preset "fast"."""
-    from torch.profiler import ProfilerActivity, profile
-
     for name in KERNELS:
         last = [r for r in rows if r["name"] == name][-1]
         lib = device_us(last["run_library"]) if last["run_library"] else "none"
@@ -882,14 +1143,12 @@ def phase_profile(rows, tts) -> None:
     tts.tts(TEXT, voice, 44100, max_generate_length=400, seed=1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tts.tts(TEXT, voice, 44100, max_generate_length=400, seed=1)
-        torch.cuda.synchronize()
-    by_kernel = _by_kernel(prof)
-    busy = sum(us for _, us in by_kernel.values()) / 1e6
+    busy_ms, _, top = _device_busy(
+        lambda: tts.tts(TEXT, voice, 44100, max_generate_length=400, seed=1), top=12)
+    busy = busy_ms / 1e3
     log(f"(f) steady tts call (fast): wall {wall:.3f} s without the profiler, device busy "
         f"{busy:.3f} s under it: busy share {busy / wall:.3f}")
-    for name, (n, us) in list(by_kernel.items())[:12]:
+    for name, (n, us) in top:
         log(f"(f)   {us / 1e3:9.2f} ms {n:6d} launches  {name}")
 
 
@@ -904,6 +1163,8 @@ def main() -> int:
     rows = phase_kernels()
     tts, launches, per_fast, rtf = phase_end_to_end()
     phase_reference(tts)
+    codec = phase_codec(card)
+    phase_tiny()
     phase_profile(rows, tts)
     phase_planted()
     table = []
@@ -913,6 +1174,7 @@ def main() -> int:
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": launches[name],
                       "launches_per_fast_call": per_fast[name],
+                      "launches_codec_infer": codec[name],
                       "max_abs_err": max(r["max_abs_err"] for r in mine),
                       "ms": last["ms"], "plain_ms": last["plain_ms"],
                       "bound_ms": last["bound_ms"], "bound_by": last["bound_by"],

@@ -50,3 +50,28 @@ def test_tts_batch_many_equals_serial(pair, voice):
         serial = tts.tts_batch(texts, voice, 44100, max_generate_length=MAX_GEN, seed=7 + i)
         for a, b in zip(many[i], serial):
             np.testing.assert_array_equal(a, b)
+
+
+def test_tts_batch_many_conditions_once(pair, voice, monkeypatch):
+    """tts_batch_many runs the voice's conditioning (the codec extract) once
+    per call, not per batch, with no cache key, and its waveforms equal the
+    serial per-batch tts_batch calls, which condition each time."""
+    _, tts = pair
+    calls = []
+    extract = tts.codec.extract_code
+
+    def counting(*args):
+        calls.append(1)
+        return extract(*args)
+
+    monkeypatch.setattr(tts.codec, "extract_code", counting)
+    batches = [["ni3 hao3"], ["jin1 tian1"], ["shi4 jie4"]]
+    many = tts.tts_batch_many(batches, voice, 44100, preset="ultra_fast",
+                              max_generate_length=MAX_GEN, seed=2)
+    assert len(calls) == 1
+    for i, texts in enumerate(batches):
+        serial = tts.tts_batch(texts, voice, 44100, preset="ultra_fast",
+                               max_generate_length=MAX_GEN, seed=2 + i)
+        for a, b in zip(many[i], serial):
+            np.testing.assert_array_equal(a, b)
+    assert len(calls) == 1 + len(batches)

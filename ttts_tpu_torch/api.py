@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from ttts_tpu_torch.config import TTTSConfig, default_config
+from ttts_tpu_torch.infer_utils import STAGES, load_state_dict, prepare_device
 from ttts_tpu_torch.text import default_tokenizer, text_to_pinyin
 from ttts_tpu_torch.diffusion import cfg_eps_fn, get_ode_sampler
 from ttts_tpu_torch.models.clvp import CLVP, RMSNorm
@@ -95,13 +96,7 @@ class TextToSpeech:
         (e.g. from ttts_tpu_torch.porting). `device` is the card unless the
         caller asks for the CPU; with no card, the default fails."""
         self.cfg = c = cfg or default_config()
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("TextToSpeech: no CUDA device; pass device='cpu' to run "
-                                   "on the CPU")
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self.device = prepare_device(device)
         self.tok = default_tokenizer()
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -126,6 +121,23 @@ class TextToSpeech:
         self.last_codes = np.zeros((0, 0), np.int64)
         self.last_best: List[int] = []
         self.last_code_lens: List[int] = []
+
+    @classmethod
+    def from_checkpoints(cls, cfg: Optional[TTTSConfig] = None, *, codec=None, gpt=None,
+                         diffusion=None, vocos=None, clvp=None, device="cuda",
+                         seed: int = 0) -> "TextToSpeech":
+        """Serving from trained weights (ttts_tpu TextToSpeech.from_checkpoints):
+        each stage argument is a release `.npz` of export_release
+        (infer_utils.load_state_dict); a stage left None keeps its random
+        weights from `seed`. Orbax directories raise: the JAX package reads
+        them."""
+        tts = cls(cfg, device=device, seed=seed)
+        paths = {"codec": codec, "gpt": gpt, "diffusion": diffusion, "vocos": vocos,
+                 "clvp": clvp}
+        for name, stage in STAGES.items():
+            if paths[stage] is not None:
+                tts.set_params(stage, load_state_dict(name, paths[stage]))
+        return tts
 
     def _modules(self) -> Dict[str, nn.Module]:
         return {"codec": self.codec, "gpt": self.gpt, "diffusion": self.diffusion,
@@ -196,19 +208,25 @@ class TextToSpeech:
         (argmax inside each block of k), one tail batch bucketed by the
         longest winner, each waveform trimmed to its own code length.
         `draws` overrides the random draws (default: Draws(seed, device))."""
+        t0 = time.perf_counter()
+        conditioning = self.get_conditioning(voice_wav, voice_sample_rate, voice_cache_key)
+        return self._tts_batch(texts, conditioning, preset, max_generate_length,
+                               draws or Draws(seed, self.device), t0)
+
+    def _tts_batch(self, texts: Sequence[str], conditioning, preset: str,
+                   max_generate_length: int, draws: Draws, t0: float) -> List[np.ndarray]:
+        """tts_batch from the voice's conditioning (get_conditioning's
+        output); `t0` starts the "conditioning" stage time."""
         opts = PRESETS[preset]
         k, n = opts["num_autoregressive_samples"], len(texts)
         c, dev = self.cfg, self.device
-        draws = draws or Draws(seed, dev)
         times: Dict[str, float] = {}
-        t0 = time.perf_counter()
 
         ids = [np.asarray(self.tok.encode(text_to_pinyin(t)), np.int64) for t in texts]
         lt = _round_up(max(len(i) for i in ids), 16)
         text_ids = torch.as_tensor(np.stack([np.pad(i, (0, lt - len(i))) for i in ids]),
                                    device=dev)
-        prompt_codes, refer_mel = self.get_conditioning(voice_wav, voice_sample_rate,
-                                                        voice_cache_key)
+        prompt_codes, refer_mel = conditioning
         lp = _round_up(prompt_codes.shape[1], 16)
         prompt_codes = torch.nn.functional.pad(prompt_codes, (0, lp - prompt_codes.shape[1]))
         t0 = self._mark(times, "conditioning", t0)
@@ -245,17 +263,20 @@ class TextToSpeech:
         hop = c.vocos.hop_length
         return [wav[i, : cl * 4 * hop] for i, cl in enumerate(code_lens)]
 
+    @torch.no_grad()
     def tts_batch_many(self, batches: Sequence[Sequence[str]], voice_wav: np.ndarray,
                        voice_sample_rate: int, preset: str = "fast",
                        max_generate_length: int = 400, seed: int = 0,
                        voice_cache_key: Optional[str] = None) -> List[List[np.ndarray]]:
         """Sustained serving over a stream of request batches: batch i is
         `tts_batch` with seed `seed + i`, the JAX package's contract. The
-        batches run one after another; overlapping batch i+1's decode with
+        voice's conditioning runs once per call, as in the JAX package; the
+        batches run one after another. Overlapping batch i+1's decode with
         batch i's tail, as the JAX package does, waits for a decode loop
         captured in CUDA graphs."""
-        return [self.tts_batch(texts, voice_wav, voice_sample_rate, preset,
-                               max_generate_length, seed + i, voice_cache_key)
+        conditioning = self.get_conditioning(voice_wav, voice_sample_rate, voice_cache_key)
+        return [self._tts_batch(texts, conditioning, preset, max_generate_length,
+                                Draws(seed + i, self.device), time.perf_counter())
                 for i, texts in enumerate(batches)]
 
     @torch.no_grad()

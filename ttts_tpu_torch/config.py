@@ -11,8 +11,11 @@ training, classifier and mesh fields are carried so that the trees stay equal.
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import pathlib
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -259,3 +262,36 @@ class TTTSConfig:
 
 def default_config() -> TTTSConfig:
     return TTTSConfig()
+
+
+def _from_dict(cls, data: dict):
+    """A config dataclass from a plain dict: strict keys, nested configs
+    from nested dicts, lists as tuples (ttts_tpu.config._from_dict)."""
+    names = {f.name: f for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in data.items():
+        if k not in names:
+            raise KeyError(f"{cls.__name__}: unknown config key {k!r}")
+        sub = globals().get(names[k].type)  # annotations are strings here
+        if isinstance(sub, type) and dataclasses.is_dataclass(sub) and isinstance(v, dict):
+            kwargs[k] = _from_dict(sub, v)
+        else:
+            kwargs[k] = _coerce(v)
+    return cls(**kwargs)
+
+
+def _coerce(v: Any) -> Any:
+    if isinstance(v, list):
+        return tuple(_coerce(x) for x in v)
+    return v
+
+
+def load_config(path: str | pathlib.Path) -> TTTSConfig:
+    """A TTTSConfig from a .json or .yaml/.yml file (ttts_tpu.config.load_config)."""
+    p = pathlib.Path(path)
+    text = p.read_text()
+    if p.suffix in (".yaml", ".yml"):
+        import yaml
+
+        return _from_dict(TTTSConfig, yaml.safe_load(text))
+    return _from_dict(TTTSConfig, json.loads(text))

@@ -1,4 +1,4 @@
-"""Codec building blocks on the extract path, port of ttts_tpu/models/blocks.py.
+"""Codec building blocks, port of ttts_tpu/models/blocks.py.
 
 Tensors are channels-last (B, T, C) at every module boundary, masks (B, T, 1)
 floats, as in the JAX package. Parameters carry the reference's torch names
@@ -76,6 +76,56 @@ class Conv1d(nn.Module):
         b = None if self.bias is None else self.bias.to(w.dtype)
         y = F.conv1d(y, w, b, stride=self.stride, dilation=self.dilation, groups=self.groups)
         return y.transpose(1, 2)
+
+
+class ConvTranspose1d(nn.Module):
+    """Transposed 1D conv on (B, T, C) as torch's ConvTranspose1d(k, stride,
+    padding): out_len = (T - 1) * stride - 2 * padding + k. The weight is
+    (in, out, k); with weight norm it is g * v / ||v|| with the norm over
+    (out, k) per *input* channel, the reference's torch weight norm (dim 0),
+    so released reference checkpoints load as they are. (The JAX module
+    normalises per output channel; ttts_tpu_torch.porting fuses its kernel
+    into v with g the per-input norm, so the effective weight is JAX's.)"""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int,
+                 padding: int = 0, weight_norm: bool = False):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        bound = 1.0 / math.sqrt(out_ch * kernel_size)  # torch's fan-in of (in, out, k)
+        w = torch.empty(in_ch, out_ch, kernel_size).uniform_(-bound, bound)
+        if weight_norm:
+            self.weight_v = nn.Parameter(w)
+            self.weight_g = nn.Parameter(w.norm(dim=(1, 2), keepdim=True))
+        else:
+            self.weight = nn.Parameter(w)
+        self.weight_norm = weight_norm
+        self.bias = nn.Parameter(torch.empty(out_ch).uniform_(-bound, bound))
+
+    def kernel(self) -> torch.Tensor:
+        if not self.weight_norm:
+            return self.weight
+        v = self.weight_v
+        return self.weight_g * v / v.norm(dim=(1, 2), keepdim=True)
+
+    def forward(self, x):
+        w = self.kernel()
+        y = F.conv_transpose1d(x.to(w.dtype).transpose(1, 2), w, self.bias.to(w.dtype),
+                               stride=self.stride, padding=self.padding)
+        return y.transpose(1, 2)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the channel axis with the reference's `gamma`, `beta`
+    keys (modules.LayerNorm). Epsilon 1e-6, as the JAX package's flax
+    nn.LayerNorm(); the reference's VITS LayerNorm uses 1e-5."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.gamma.shape, self.gamma, self.beta, 1e-6)
 
 
 class SnakeBeta(nn.Module):
@@ -283,3 +333,119 @@ class MelStyleEncoder(nn.Module):
         if mask is None:
             return x.mean(dim=1)
         return (x * mask).sum(dim=1) / mask.sum(dim=1).clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# VITS relative-position transformer (attentions.py, ttts_tpu blocks.py:290-440)
+# ---------------------------------------------------------------------------
+
+
+def _rel_to_abs(x: torch.Tensor) -> torch.Tensor:
+    """(b, h, l, 2l-1) relative-indexed logits → (b, h, l, l) absolute (the
+    skew trick, attentions.py _relative_position_to_absolute_position)."""
+    b, h, l, _ = x.shape
+    x = F.pad(x, (0, 1)).reshape(b, h, 2 * l * l)
+    x = F.pad(x, (0, l - 1)).reshape(b, h, l + 1, 2 * l - 1)
+    return x[:, :, :l, l - 1:]
+
+
+def _abs_to_rel(x: torch.Tensor) -> torch.Tensor:
+    """(b, h, l, l) → (b, h, l, 2l-1) (_absolute_position_to_relative_position)."""
+    b, h, l, _ = x.shape
+    x = F.pad(x, (0, l - 1)).reshape(b, h, l * (2 * l - 1))
+    return F.pad(x, (l, 0)).reshape(b, h, l, 2 * l)[:, :, :, 1:]
+
+
+def _get_rel_embeddings(emb: torch.Tensor, length: int, window_size: int) -> torch.Tensor:
+    """Zero-pad or slice the (n, 2w+1, d) table to (n, 2*length-1, d)."""
+    pad_len = max(length - (window_size + 1), 0)
+    start = max((window_size + 1) - length, 0)
+    emb = F.pad(emb, (0, 0, pad_len, pad_len))
+    return emb[:, start: start + 2 * length - 1]
+
+
+class MultiHeadAttention(nn.Module):
+    """Self or cross attention with 1x1 conv projections and an optional
+    windowed relative-position bias (attentions.MultiHeadAttention; ttts_tpu
+    RelPosMultiHeadAttention with window_size). Keys conv_q, conv_k, conv_v,
+    conv_o, emb_rel_k, emb_rel_v; the heads share one (1, 2w+1, dk) table
+    each, as every configuration does. Masked scores are -1e4, as in JAX.
+    Plain PyTorch: the JAX package computes it outside any Pallas kernel, at
+    widths (192 wide, 2 heads) too small to want one."""
+
+    def __init__(self, channels: int, out_channels: int, n_heads: int,
+                 window_size: Optional[int] = None):
+        super().__init__()
+        self.n_heads, self.window_size = n_heads, window_size
+        self.dk = dk = channels // n_heads
+        self.conv_q, self.conv_k, self.conv_v = (
+            Conv1d(channels, channels, 1, padding=(0, 0)) for _ in range(3))
+        self.conv_o = Conv1d(channels, out_channels, 1, padding=(0, 0))
+        if window_size is not None:
+            self.emb_rel_k = nn.Parameter(torch.randn(1, 2 * window_size + 1, dk) * dk ** -0.5)
+            self.emb_rel_v = nn.Parameter(torch.randn(1, 2 * window_size + 1, dk) * dk ** -0.5)
+
+    def forward(self, x, c, attn_mask=None):
+        """x (B, Tq, C) queries, c (B, Tk, C) keys and values, attn_mask
+        broadcastable to (B, H, Tq, Tk), 0 where masked."""
+        b, t, _ = x.shape
+        h, dk = self.n_heads, self.dk
+        q = self.conv_q(x).reshape(b, t, h, dk).transpose(1, 2)
+        k = self.conv_k(c).reshape(b, c.shape[1], h, dk).transpose(1, 2)
+        v = self.conv_v(c).reshape(b, c.shape[1], h, dk).transpose(1, 2)
+        scores = (q * (1.0 / math.sqrt(dk))) @ k.transpose(-1, -2)
+        if self.window_size is not None:
+            if c.shape[1] != t:
+                raise ValueError("relative attention is self-attention only")
+            rel_k = _get_rel_embeddings(self.emb_rel_k, t, self.window_size)[0]
+            rel = torch.einsum("bhld,md->bhlm", q / math.sqrt(dk), rel_k)
+            scores = scores + _rel_to_abs(rel)
+        if attn_mask is not None:
+            scores = scores.masked_fill(attn_mask == 0, -1e4)
+        p = torch.softmax(scores, dim=-1)
+        out = p @ v
+        if self.window_size is not None:
+            rel_v = _get_rel_embeddings(self.emb_rel_v, t, self.window_size)[0]
+            out = out + torch.einsum("bhlm,md->bhld", _abs_to_rel(p), rel_v)
+        return self.conv_o(out.transpose(1, 2).reshape(b, t, h * dk))
+
+
+class ConvFFN(nn.Module):
+    """conv → ReLU → conv, masked (attentions.FFN; keys conv_1, conv_2)."""
+
+    def __init__(self, channels: int, out_channels: int, filter_channels: int,
+                 kernel_size: int):
+        super().__init__()
+        self.conv_1 = Conv1d(channels, filter_channels, kernel_size)
+        self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size)
+
+    def forward(self, x, x_mask):
+        x = torch.relu(self.conv_1(x * x_mask))
+        return self.conv_2(x * x_mask) * x_mask
+
+
+class TransformerEncoder(nn.Module):
+    """Post-LN transformer with windowed relative-position self-attention
+    (attentions.Encoder; keys attn_layers, norm_layers_1, ffn_layers,
+    norm_layers_2)."""
+
+    def __init__(self, hidden_channels: int, filter_channels: int, n_heads: int,
+                 n_layers: int, kernel_size: int = 1, window_size: int = 4):
+        super().__init__()
+        hc = hidden_channels
+        self.attn_layers = nn.ModuleList(
+            MultiHeadAttention(hc, hc, n_heads, window_size=window_size)
+            for _ in range(n_layers))
+        self.norm_layers_1 = nn.ModuleList(LayerNorm(hc) for _ in range(n_layers))
+        self.ffn_layers = nn.ModuleList(ConvFFN(hc, hc, filter_channels, kernel_size)
+                                        for _ in range(n_layers))
+        self.norm_layers_2 = nn.ModuleList(LayerNorm(hc) for _ in range(n_layers))
+
+    def forward(self, x, x_mask):
+        attn_mask = x_mask[:, None, :, 0][:, :, None, :] * x_mask[:, None, :, 0][:, :, :, None]
+        x = x * x_mask
+        for attn, norm1, ffn, norm2 in zip(self.attn_layers, self.norm_layers_1,
+                                           self.ffn_layers, self.norm_layers_2):
+            x = norm1(x + attn(x, x, attn_mask))
+            x = norm2(x + ffn(x, x_mask))
+        return x * x_mask

@@ -13,8 +13,9 @@ exp(temperature) run in f32, and the output is one similarity per (text,
 speech) pair.
 
 Unmasked attention (the rerank) runs the flash-attention kernel in its
-no-bias mode; a call with masks (training only) takes the masked plain
-version. Module and parameter names are the reference's
+no-bias mode through `attention.attend`, which takes the plain version
+outside the kernel's domain; a call with masks (training only) takes the
+masked plain version. Module and parameter names are the reference's
 (ttts/clvp/model.py with CheckpointedXTransformerEncoder), so
 ttts_tpu.models.porting.port_clvp_xformers_state reads this state dict.
 """
@@ -31,7 +32,7 @@ import torch.nn.functional as F
 from ttts_tpu_torch.config import CLVPConfig
 from ttts_tpu_torch.models.blocks import Linear
 from ttts_tpu_torch.models.gpt import LayerNorm
-from ttts_tpu_torch.ops.cuda.attention import flash_attention
+from ttts_tpu_torch.ops.cuda import attention
 
 
 class RMSNorm(nn.Module):
@@ -87,7 +88,7 @@ class Attention(nn.Module):
         rot = max(dk // 2, 32)
         q, k, v = (apply_rotary(f(x).reshape(b, t, h, dk), rot).to(x.dtype)
                    for f in (self.to_q, self.to_k, self.to_v))
-        a = flash_attention(q, k, v) if mask is None else masked_attention(q, k, v, mask)
+        a = attention.attend(q, k, v) if mask is None else masked_attention(q, k, v, mask)
         return self.to_out(a.reshape(b, t, h * dk))
 
 

@@ -4,8 +4,11 @@ state-dict keys are the reference's (ttts/diffusion/aa_model.py).
 
 Every AttentionBlock takes its T5-bucket relative-position bias as the
 (H, 2T-1) Toeplitz strip and runs the Toeplitz-bias attention kernel; every
-ScaleShiftResBlock runs the fused resblock kernel (ops/cuda; on the CPU their
-plain versions). Matmuls compute in their weights' dtype (bf16 after
+ScaleShiftResBlock runs the fused resblock kernel (ops/cuda), each through
+its op's dispatch (`attention.attend`, `resblock.scale_shift_resblock`),
+which takes the plain version for shapes and dtypes outside the kernel's
+domain, as the JAX package gates its kernels; on the CPU every wrapper runs
+its plain version. Matmuls compute in their weights' dtype (bf16 after
 `cast_for_inference` on the card), GroupNorms in f32.
 """
 
@@ -21,8 +24,7 @@ import torch.nn.functional as F
 
 from ttts_tpu_torch.config import DiffusionNetConfig
 from ttts_tpu_torch.models.blocks import Conv1d, Linear
-from ttts_tpu_torch.ops.cuda.attention import flash_attention
-from ttts_tpu_torch.ops.cuda.resblock import fused_gn_qkv, fused_scale_shift_resblock
+from ttts_tpu_torch.ops.cuda import attention, resblock
 
 TACOTRON_MEL_MAX = 5.5451774444795624753378569716654
 
@@ -154,21 +156,22 @@ class AttentionBlock(nn.Module):
         dk = c // h
         if self.fused_gn:
             w = _relaid(self, (self.qkv.weight,), lambda w: w[:, :, 0].t().contiguous())
-            qkv = fused_gn_qkv(x.to(w.dtype), self.norm.weight, self.norm.bias, w,
-                               self.qkv.bias, groups=self.norm.num_groups)
+            qkv = resblock.gn_qkv(x.to(w.dtype), self.norm.weight, self.norm.bias, w,
+                                  self.qkv.bias, groups=self.norm.num_groups)
         else:
             qkv = self.qkv(self.norm(x))
         qkv = qkv.reshape(b, t, h, 3 * dk)
         q, k, v = qkv[..., :dk], qkv[..., dk:2 * dk], qkv[..., 2 * dk:]
         if strip is None:
             strip = self.relative_pos_embeddings.strip(t)
-        a = flash_attention(q, k, v, strip)
+        a = attention.attend(q, k, v, strip)
         return x + self.proj_out(a.reshape(b, t, c))
 
 
 class ScaleShiftResBlock(nn.Module):
     """ResBlock with scale-shift (FiLM) timestep conditioning, efficient 1x1
-    in-conv (aa_model.py:72-133); runs as one fused resblock call."""
+    in-conv (aa_model.py:72-133); runs as one fused resblock call
+    (resblock.scale_shift_resblock)."""
 
     def __init__(self, channels: int, emb_channels: int):
         super().__init__()
@@ -187,7 +190,7 @@ class ScaleShiftResBlock(nn.Module):
         w1, w3 = _relaid(self, (self.in_layers[2].weight, self.out_layers[3].weight),
                         lambda w1, w3: (w1[:, :, 0].t().contiguous(),
                                         w3.permute(2, 1, 0).contiguous()))
-        return fused_scale_shift_resblock(
+        return resblock.scale_shift_resblock(
             x.to(w1.dtype), gn1.weight, gn1.bias, w1, self.in_layers[2].bias, a2, b2,
             w3, self.out_layers[3].bias, groups=gn1.num_groups)
 

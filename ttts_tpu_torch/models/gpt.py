@@ -7,7 +7,11 @@ gpt.h.{i}.attn.c_attn with Conv1D weights stored (in, out)). Single-token
 decode runs through the fused decode-attention kernel (ops/cuda) over
 per-layer caches laid out (B, H, max_len, dk); the prefill and the
 return_latent forward run the flash-attention kernel in its causal mode on
-(B, T, H, dk) views of the fused qkv.
+(B, T, H, dk) views of the fused qkv. Each takes its kernel only where the
+kernel's domain holds (bf16, dk 64 for decode, chosen once per
+`inference_speech` by `decode_attention.pick`; D 32 or 64 for attention,
+through `attention.attend`), else the kernel's plain version, as the JAX
+package gates its decode kernel.
 
 Dtypes: activations follow the matmul weights' dtype (bf16 after
 `cast_for_inference` on the card); LayerNorms and heads compute in f32.
@@ -26,8 +30,7 @@ import torch.nn.functional as F
 
 from ttts_tpu_torch.config import GPTConfig
 from ttts_tpu_torch.models.sampling import SamplingParams, sample_logits
-from ttts_tpu_torch.ops.cuda.attention import flash_attention
-from ttts_tpu_torch.ops.cuda.decode_attention import decode_attention
+from ttts_tpu_torch.ops.cuda import attention, decode_attention
 
 Cache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -73,26 +76,27 @@ class GPT2Block(nn.Module):
         self.mlp.c_proj = Conv1D(4 * dim, dim)
 
     def forward(self, x, cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                pos: int = 0):
+                pos: int = 0, step=None):
         """x (B, T, D) in the activation dtype. With a cache: T > 1 writes
         rows [pos, pos+T) and attends causally over those fresh rows (the
-        prefix is self-contained); T == 1 is one decode step at row `pos`.
-        Without: causal self-attention over x."""
+        prefix is self-contained); T == 1 is one decode step at row `pos`
+        through `step`, the decode-attention function (decode_attention.pick's
+        choice, made here when not given). Without: causal self-attention
+        over x."""
         b, t, d = x.shape
         h = self.heads
         dk = d // h
         q, k, v = self.attn.c_attn(self.ln_1(x)).split(d, dim=-1)
         if cache is not None and t == 1:
-            ck, cv = cache
-            a = decode_attention(q.reshape(b, h, dk), k.reshape(b, h, dk),
-                                 v.reshape(b, h, dk), ck, cv, pos)
+            step = step or decode_attention.pick(q.dtype, dk)
+            a = step(q.reshape(b, h, dk), k.reshape(b, h, dk), v.reshape(b, h, dk), *cache, pos)
             a = a.reshape(b, 1, d).to(x.dtype)
         else:
             q, k, v = (z.reshape(b, t, h, dk) for z in (q, k, v))
             if cache is not None:
                 cache[0][:, :, pos: pos + t] = k.transpose(1, 2)
                 cache[1][:, :, pos: pos + t] = v.transpose(1, 2)
-            a = flash_attention(q, k, v, causal=True).reshape(b, t, d)
+            a = attention.attend(q, k, v, causal=True).reshape(b, t, d)
         x = x + self.attn.c_proj(a)
         return x + self.mlp.c_proj(gelu_new(self.mlp.c_fc(self.ln_2(x))))
 
@@ -122,10 +126,10 @@ class UnifiedVoice(nn.Module):
     def act_dtype(self) -> torch.dtype:
         return self.gpt.h[0].attn.c_attn.weight.dtype
 
-    def _stack(self, emb, cache: Optional[Cache] = None, pos: int = 0):
+    def _stack(self, emb, cache: Optional[Cache] = None, pos: int = 0, step=None):
         x = emb.to(self.act_dtype)
         for i, block in enumerate(self.gpt.h):
-            x = block(x, None if cache is None else cache[i], pos)
+            x = block(x, None if cache is None else cache[i], pos, step)
         return self.gpt.ln_f(x)
 
     def _head(self, h):
@@ -176,12 +180,13 @@ class UnifiedVoice(nn.Module):
         hid = self._stack(emb, cache, 0)
         return cache, self._head(hid[:, -1]), p, mel_in.shape[1]
 
-    def decode_one(self, token, cache: Cache, position: int, mel_position: int):
+    def decode_one(self, token, cache: Cache, position: int, mel_position: int, step=None):
         """One decode step at absolute row `position` (mel position
-        `mel_position`); caches update in place. Returns logits (B, V) f32."""
+        `mel_position`); caches update in place; `step` as in GPT2Block.
+        Returns logits (B, V) f32."""
         emb = (self.mel_embedding(token[:, None])
                + self.mel_pos_embedding.emb.weight[mel_position][None, None])
-        return self._head(self._stack(emb, cache, position)[:, 0])
+        return self._head(self._stack(emb, cache, position, step)[:, 0])
 
 
 def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
@@ -205,6 +210,7 @@ def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
                         device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     rows = torch.arange(b, device=dev)
+    step = decode_attention.pick(model.act_dtype, c.model_dim // c.heads)  # once per call
     for i in range(max_generate_length):
         tok = sample_logits(logits, counts, sampling, gumbel[i])
         tok = torch.where(done, c.stop_mel_token, tok)
@@ -213,5 +219,5 @@ def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
         tokens[:, i] = tok
         if bool(done.all()):
             break
-        logits = model.decode_one(tok, cache, prefix_len + i, mel_off + i)
+        logits = model.decode_one(tok, cache, prefix_len + i, mel_off + i, step)
     return tokens

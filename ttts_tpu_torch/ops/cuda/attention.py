@@ -14,6 +14,7 @@ The launch counts are kept per mode ("bias", "nobias", "causal",
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -60,19 +61,44 @@ def _strides(x: torch.Tensor, name: str):
     return st, sh
 
 
+def _unsupported(q, k, v) -> Optional[str]:
+    """Why the kernel's domain does not hold for these dtypes and shapes, or
+    None."""
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
+        return "the kernel takes bfloat16 q, k, v"
+    if k.shape != q.shape or v.shape != q.shape or q.ndim != 4 or q.shape[3] not in (32, 64):
+        return f"unsupported shapes {tuple(q.shape)} (D 32 or 64)"
+    return None
+
+
+def kernel_fits(q, k, v) -> bool:
+    """Whether the kernel's domain (bf16 q, k, v of one (B, T, H, D) shape,
+    D 32 or 64) holds: the gate `attend` takes before any launch, as
+    ttts_tpu's call sites gate theirs. The views' strides and the strip's
+    shape are not part of it: the wrapper raises on those."""
+    return _unsupported(q, k, v) is None
+
+
+def attend(q, k, v, strip=None, causal: bool = False) -> torch.Tensor:
+    """The model call sites' attention: the kernel where its domain holds
+    (kernel_fits), else flash_attention_plain."""
+    fn = flash_attention if kernel_fits(q, k, v) else flash_attention_plain
+    return fn(q, k, v, strip, causal)
+
+
 def flash_attention(q, k, v, strip=None, causal: bool = False) -> torch.Tensor:
-    """See flash_attention_plain. On CUDA q, k, v are bf16 with D in {32, 64};
-    each may be a strided view of a fused qkv tensor."""
+    """See flash_attention_plain. On CUDA the inputs are in the kernel's
+    domain (kernel_fits): bf16 q, k, v with D in {32, 64}, each possibly a
+    strided view of a fused qkv tensor that `_strides` accepts."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, strip, causal)
     tensors = (k, v) if strip is None else (k, v, strip)
     if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
         raise ValueError("flash_attention: all tensors must be on one CUDA device")
-    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
-        raise TypeError("flash_attention: the kernel takes bfloat16 q, k, v")
+    why = _unsupported(q, k, v)
+    if why:
+        raise ValueError(f"flash_attention: {why}")
     b, t, h, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape or d not in (32, 64):
-        raise ValueError(f"flash_attention: unsupported shapes {tuple(q.shape)}")
     strip_ptr, strip_stride = None, 0
     if strip is not None:
         if strip.shape != (h, 2 * t - 1):

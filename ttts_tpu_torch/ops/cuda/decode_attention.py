@@ -33,15 +33,32 @@ def decode_attention_plain(q, uk, uv, k_cache, v_cache, pos: int) -> torch.Tenso
     return torch.einsum("bhm,bhmd->bhd", p, vc).to(q.dtype)
 
 
+def kernel_fits(dtype: torch.dtype, dk: int) -> bool:
+    """Whether the kernel's domain holds for q and caches of this dtype and
+    head width: bfloat16 and dk = 64. The gate a model takes before any
+    launch, as ttts_tpu's decode attention gates its kernel; `pos`, the
+    caches' layout and alignment are not part of it (the wrapper raises on
+    those)."""
+    return dtype == torch.bfloat16 and dk == DK
+
+
+def pick(dtype: torch.dtype, dk: int):
+    """The decode-attention function for q and caches of this dtype and head
+    width: decode_attention where kernel_fits holds, else its plain version.
+    A decode loop picks once and calls the result every step."""
+    return decode_attention if kernel_fits(dtype, dk) else decode_attention_plain
+
+
 def decode_attention(q, uk, uv, k_cache, v_cache, pos: int) -> torch.Tensor:
-    """One decode-attention step; see decode_attention_plain for shapes."""
+    """One decode-attention step; see decode_attention_plain for shapes. On
+    CUDA the dtype and dk are in the kernel's domain (kernel_fits)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, uk, uv, k_cache, v_cache, pos)
     tensors = (q, uk, uv, k_cache, v_cache)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError("decode_attention: all tensors must be on one CUDA device")
     if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError("decode_attention: the kernel takes bfloat16 q, uk, uv and caches")
+        raise ValueError("decode_attention: the kernel takes bfloat16 q, uk, uv and caches")
     b, h, max_len, dk = k_cache.shape
     if (q.shape != (b, h, dk) or uk.shape != q.shape or uv.shape != q.shape
             or v_cache.shape != k_cache.shape or not 0 <= pos < max_len or dk != DK):

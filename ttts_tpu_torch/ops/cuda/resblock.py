@@ -20,6 +20,8 @@ into wgmma's register A operand.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ttts_tpu_torch.ops.cuda import _build
@@ -57,23 +59,49 @@ def fused_scale_shift_resblock_plain(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
     return (xf + y + bc3.to(f32)).to(dt)
 
 
+def _resblock_unsupported(x, w1, a2, b2, w3, groups: int) -> Optional[str]:
+    """Why the resblock kernel cannot take these dtypes and shapes, or None."""
+    if x.dtype != torch.bfloat16 or w1.dtype != x.dtype or w3.dtype != x.dtype:
+        return "the kernel takes bfloat16 x, w1, w3"
+    b, t, c = x.shape
+    if (c % _BN or c > 1024 or c != _CG * groups or w1.shape != (c, c)
+            or w3.shape != (3, c, c) or a2.shape != (b, c) or b2.shape != (b, c)):
+        return (f"unsupported shapes x {tuple(x.shape)}, groups {groups} (C a multiple of "
+                f"{_BN} up to 1024, C / groups = {_CG})")
+    return None
+
+
+def resblock_fits(x, g1, b1, w1, bd1, a2, b2, w3, bc3, groups: int = 32) -> bool:
+    """Whether fused_scale_shift_resblock's kernel domain holds for these
+    dtypes and shapes: the gate `scale_shift_resblock` takes before any
+    launch (ttts_tpu ScaleShiftResBlock._use_fused's)."""
+    return _resblock_unsupported(x, w1, a2, b2, w3, groups) is None
+
+
+def scale_shift_resblock(x, g1, b1, w1, bd1, a2, b2, w3, bc3, groups: int = 32):
+    """The model call site's resblock: the kernel where its domain holds
+    (resblock_fits), else fused_scale_shift_resblock_plain."""
+    args = (x, g1, b1, w1, bd1, a2, b2, w3, bc3)
+    fn = (fused_scale_shift_resblock if resblock_fits(*args, groups=groups)
+          else fused_scale_shift_resblock_plain)
+    return fn(*args, groups=groups)
+
+
 def fused_scale_shift_resblock(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
                                groups: int = 32, eps: float = 1e-5):
-    """See fused_scale_shift_resblock_plain. On CUDA x, w1 and w3 are bf16,
-    C is a multiple of 128 (at most 1024) and C / groups is 16."""
+    """See fused_scale_shift_resblock_plain. On CUDA the shapes are in the
+    kernel's domain (resblock_fits): bf16 x, w1 and w3, C a multiple of 128
+    (at most 1024) and C / groups = 16."""
     if x.device.type == "cpu":
         return fused_scale_shift_resblock_plain(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
                                                 groups, eps)
     args = (g1, b1, w1, bd1, a2, b2, w3, bc3)
     if x.device.type != "cuda" or any(a.device != x.device for a in args):
         raise ValueError("fused_scale_shift_resblock: all tensors must be on one CUDA device")
-    if x.dtype != torch.bfloat16 or w1.dtype != x.dtype or w3.dtype != x.dtype:
-        raise TypeError("fused_scale_shift_resblock: the kernel takes bfloat16 x, w1, w3")
+    why = _resblock_unsupported(x, w1, a2, b2, w3, groups)
+    if why:
+        raise ValueError(f"fused_scale_shift_resblock: {why}")
     b, t, c = x.shape
-    if (c % _BN or c > 1024 or c != _CG * groups or w1.shape != (c, c)
-            or w3.shape != (3, c, c) or a2.shape != (b, c) or b2.shape != (b, c)):
-        raise ValueError(f"fused_scale_shift_resblock: unsupported shapes x {tuple(x.shape)}, "
-                         f"groups {groups}")
     vec = lambda v: v.float().contiguous()  # noqa: E731
     x, w1, w3 = x.contiguous(), w1.contiguous(), w3.contiguous()
     g1, b1, bd1, bc3, a2, b2 = map(vec, (g1, b1, bd1, bc3, a2, b2))
@@ -106,22 +134,47 @@ def fused_gn_qkv_plain(x, g, b, w, bias, groups: int = 32, eps: float = 1e-5):
     return (h @ w.to(dt).float() + bias.float()).to(dt)
 
 
+def _gn_qkv_unsupported(x, w, bias, groups: int) -> Optional[str]:
+    """Why the fused_gn_qkv kernel cannot take these dtypes and shapes, or None."""
+    if x.dtype != torch.bfloat16 or w.dtype != x.dtype:
+        return "the kernel takes bfloat16 x and w"
+    c, k = x.shape[-1], w.shape[1]
+    if (c % _BK or c > 1024 or c % (8 * groups) or groups > 64 or k % _BN
+            or w.shape != (c, k) or bias.shape != (k,)):
+        return (f"unsupported shapes x {tuple(x.shape)}, w {tuple(w.shape)}, groups {groups} "
+                f"(C a multiple of {_BK} up to 1024, C / groups a multiple of 8, groups <= 64, "
+                f"K a multiple of {_BN})")
+    return None
+
+
+def gn_qkv_fits(x, g, b, w, bias, groups: int = 32) -> bool:
+    """Whether fused_gn_qkv's kernel domain holds for these dtypes and
+    shapes: the gate `gn_qkv` takes before any launch (ttts_tpu
+    AttentionBlock._use_fused_gn's)."""
+    return _gn_qkv_unsupported(x, w, bias, groups) is None
+
+
+def gn_qkv(x, g, b, w, bias, groups: int = 32):
+    """The model call site's GroupNorm → qkv: the kernel where its domain
+    holds (gn_qkv_fits), else fused_gn_qkv_plain."""
+    fn = fused_gn_qkv if gn_qkv_fits(x, g, b, w, bias, groups) else fused_gn_qkv_plain
+    return fn(x, g, b, w, bias, groups=groups)
+
+
 def fused_gn_qkv(x, g, b, w, bias, groups: int = 32, eps: float = 1e-5):
-    """See fused_gn_qkv_plain (w is (in, out)). On CUDA x and w are bf16, C
-    is a multiple of 64 (at most 1024), C / groups a multiple of 8, K a
-    multiple of 128 and groups at most 64."""
+    """See fused_gn_qkv_plain (w is (in, out)). On CUDA the shapes are in the
+    kernel's domain (gn_qkv_fits): bf16 x and w, C a multiple of 64 (at most
+    1024), C / groups a multiple of 8, K a multiple of 128 and groups at most
+    64."""
     if x.device.type == "cpu":
         return fused_gn_qkv_plain(x, g, b, w, bias, groups, eps)
     if x.device.type != "cuda" or any(a.device != x.device for a in (g, b, w, bias)):
         raise ValueError("fused_gn_qkv: all tensors must be on one CUDA device")
-    if x.dtype != torch.bfloat16 or w.dtype != x.dtype:
-        raise TypeError("fused_gn_qkv: the kernel takes bfloat16 x and w")
+    why = _gn_qkv_unsupported(x, w, bias, groups)
+    if why:
+        raise ValueError(f"fused_gn_qkv: {why}")
     bsz, t, c = x.shape
     k = w.shape[1]
-    if (c % _BK or c > 1024 or c % (8 * groups) or groups > 64 or k % _BN
-            or w.shape != (c, k) or bias.shape != (k,)):
-        raise ValueError(f"fused_gn_qkv: unsupported shapes x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)}, groups {groups}")
     x, w = x.contiguous(), w.contiguous()
     g, b, bias = (v.float().contiguous() for v in (g, b, bias))
     f32 = dict(dtype=torch.float32, device=x.device)

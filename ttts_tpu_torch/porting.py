@@ -127,14 +127,95 @@ def _posterior_audio_encoder(sd: StateDict, p: str, tree) -> None:
     _conv(sd, p + ".proj", tree[f"Conv1d_{n_down + 3}"])
 
 
+def _layernorm(sd: StateDict, p: str, tree) -> None:
+    """flax LayerNorm {scale, bias} → the reference's modules.LayerNorm
+    {gamma, beta}."""
+    sd[p + ".gamma"] = _a(tree["scale"])
+    sd[p + ".beta"] = _a(tree["bias"])
+
+
+def _vits_mha(sd: StateDict, p: str, tree) -> None:
+    for i, name in enumerate(("conv_q", "conv_k", "conv_v", "conv_o")):
+        _conv(sd, f"{p}.{name}", tree[f"Conv1d_{i}"])
+    for name in ("emb_rel_k", "emb_rel_v"):
+        if name in tree:
+            sd[f"{p}.{name}"] = _a(tree[name])
+
+
+def _vits_encoder(sd: StateDict, p: str, tree) -> None:
+    for i in range(_count(tree, "RelPosMultiHeadAttention_")):
+        _vits_mha(sd, f"{p}.attn_layers.{i}", tree[f"RelPosMultiHeadAttention_{i}"])
+        _layernorm(sd, f"{p}.norm_layers_1.{i}", tree[f"LayerNorm_{2 * i}"])
+        ffn = tree[f"ConvFFN_{i}"]
+        _conv(sd, f"{p}.ffn_layers.{i}.conv_1", ffn["Conv1d_0"])
+        _conv(sd, f"{p}.ffn_layers.{i}.conv_2", ffn["Conv1d_1"])
+        _layernorm(sd, f"{p}.norm_layers_2.{i}", tree[f"LayerNorm_{2 * i + 1}"])
+
+
+def _text_encoder(sd: StateDict, p: str, tree) -> None:
+    _vits_encoder(sd, p + ".encoder_ssl", tree["TransformerEncoder_0"])
+    sd[p + ".text_embedding.weight"] = _a(tree["Embed_0"]["embedding"])
+    _vits_encoder(sd, p + ".encoder_text", tree["TransformerEncoder_1"])
+    mrte = tree["MRTE_0"]
+    _conv(sd, p + ".mrte.c_pre", mrte["Conv1d_0"])
+    _conv(sd, p + ".mrte.text_pre", mrte["Conv1d_1"])
+    _vits_mha(sd, p + ".mrte.cross_attention", mrte["RelPosMultiHeadAttention_0"])
+    _conv(sd, p + ".mrte.c_post", mrte["Conv1d_2"])
+    _vits_encoder(sd, p + ".encoder2", tree["TransformerEncoder_2"])
+    _conv(sd, p + ".proj", tree["Conv1d_0"])
+
+
+def _coupling_flow(sd: StateDict, p: str, tree) -> None:
+    """flows.{2i} are the coupling layers; flows.{2i+1} the parameter-free flips."""
+    for i in range(_count(tree, "ResidualCouplingLayer_")):
+        lyr, fp = tree[f"ResidualCouplingLayer_{i}"], f"{p}.flows.{2 * i}"
+        _conv(sd, fp + ".pre", lyr["Conv1d_0"])
+        _wn(sd, fp + ".enc", lyr["WN_0"])
+        _dense_as_conv1x1(sd, fp + ".post", lyr["Dense_0"])
+
+
+def _conv_transpose(sd: StateDict, p: str, tree) -> None:
+    """blocks.ConvTranspose1d {kernel (k, in, out), g (out,), bias} → the
+    reference's weight-normed ConvTranspose1d (weight_v (in, out, k),
+    weight_g (in, 1, 1)). The JAX module normalises per output channel and
+    the reference per input channel, so the effective kernel
+    kernel * g / ||kernel|| is stored as v with g its per-input norm: the
+    port's g * v / ||v|| is then the JAX module's weight (the inverse of
+    ttts_tpu porting._convT, which fuses the other way)."""
+    kernel = _a(tree["kernel"])
+    norm = np.sqrt((kernel.reshape(-1, kernel.shape[-1]) ** 2).sum(0))
+    w = (kernel * (_a(tree["g"]) / np.maximum(norm, 1e-12))).transpose(1, 2, 0)
+    sd[p + ".weight_v"] = w
+    sd[p + ".weight_g"] = np.sqrt((w ** 2).sum(axis=(1, 2), keepdims=True))
+    _bias(sd, p, tree)
+
+
+def _generator(sd: StateDict, p: str, tree) -> None:
+    _conv(sd, p + ".conv_pre", tree["Conv1d_0"])
+    _conv(sd, p + ".cond", tree["Conv1d_1"])
+    _conv(sd, p + ".conv_post", tree["Conv1d_2"])
+    n_up = _count(tree, "ConvTranspose1d_")
+    n_rb = _count(tree, "ResBlock1_") // n_up
+    for i in range(n_up):
+        _conv_transpose(sd, f"{p}.ups.{i}", tree[f"ConvTranspose1d_{i}"])
+        for j in range(n_rb):
+            k = i * n_rb + j
+            _resblock1(sd, f"{p}.resblocks.{k}", tree[f"ResBlock1_{k}"])
+
+
 def synthesizer_trn_state_dict(variables) -> StateDict:
     """JAX SynthesizerTrn variables {'params', 'codebook'} → the state dict
-    of ttts_tpu_torch.models.vqvae.SynthesizerTrn (extract path: ref_enc,
-    enc_p, proj, quantizer). Inverse of port_synthesizer_trn_state."""
+    of ttts_tpu_torch.models.vqvae.SynthesizerTrn (ref_enc, enc_p, enc_p_2,
+    flow, dec, proj, quantizer; enc_q, which serving does not build and
+    release exports drop, is skipped). Inverse of port_synthesizer_trn_state
+    (for dec's transposed convolutions, in their effective weights)."""
     params = variables["params"]
     sd: StateDict = {}
     _mel_style_encoder(sd, "ref_enc", params["ref_enc"])
     _posterior_audio_encoder(sd, "enc_p", params["enc_p"])
+    _text_encoder(sd, "enc_p_2", params["enc_p_2"])
+    _coupling_flow(sd, "flow", params["flow"])
+    _generator(sd, "dec", params["dec"])
     _conv(sd, "proj", params["proj"])
     state = variables["codebook"]["quantizer"]["state"]
     get = (lambda k: state[k]) if isinstance(state, dict) else (lambda k: getattr(state, k))

@@ -47,13 +47,36 @@ Phases, one printed line each, any failure raising (non-zero exit):
       the VQ kernel launched by `infer`; median ms of each;
   (i) TextToSpeech on tests/test_api.py's TINY config on the card (after
       (h)): the shape gates send every shape outside a kernel's domain to its
-      plain version.
+      plain version;
+  (j) the rest of the inference surface (run last): TextToSpeech at
+      default_config() widths with sampler "unipc" and the plain-Transformer
+      CLVP (use_xformers=False), a warm-up, then steady "fast" calls in
+      turns with phase (d)'s TextToSpeech (DPM, UniPC, UniPC, DPM): finite
+      waveforms of the implied lengths, each kernel launched as often as its
+      call sites were called and as phase (d)'s steady DPM call launched it
+      (UniPC has the same NFE), no no-bias launch (the plain CLVP attends in
+      plain PyTorch, f32); then the card against the port's
+      f32 CPU path at the same weights, each relative error beside its limit
+      (SLICE7_TOL): the UniPC tail ("unipc", "unipc_bh1", 10 steps, shared
+      noise), the plain CLVP's latents and similarities, apply_typical's kept
+      sets, a typical-sampling decode with the serving (bf16) GPT and with
+      an f32 copy of the CPU's on the card, each teacher-forced on both
+      paths with shared Gumbel draws (tokens equal wherever the kept sets
+      are and the draw is decided by more than the logits' error; the f32
+      one's kept sets equal in >= 90% of its draws), the classifier's
+      logits, the Vocos ResNet backbone with each IMDCT head and
+      imdct(mdct(x)), ConditioningEncoder (bf16, the no-bias kernel),
+      MelEncoder, PerceiverResampler and one DiffusionTts forward (bf16, the
+      bias kernel at D=32 and 64, the resblock kernel) on the 5 s voice's
+      mel; median ms of each module call, and torch.profiler device time of
+      the rerank alone in each CLVP flavour.
 The last two lines are the kernel table as JSON and then
 {"ok": true, "device": {...}}. Imports no JAX; needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -231,9 +254,9 @@ def _timed(rows, name, shape, m, metric, tol, run, run_plain, run_library, work)
         err += f" (tol: {metric} <= {tol})"
     log(f"(c) {name} {shape}: {err} | kernel {ms:.4f} ms, plain {pms:.4f} ms, "
         f"library {lib}, bound {bms:.4f} ms ({by})")
-    rows.append({"name": name, "max_abs_err": m["max_abs"], "ms": ms, "plain_ms": pms,
-                 "library_ms": lms, "bound_ms": bms, "bound_by": by, "run": run,
-                 "run_plain": run_plain, "run_library": run_library})
+    rows.append({"name": name, "shape": shape, "max_abs_err": m["max_abs"], "ms": ms,
+                 "plain_ms": pms, "library_ms": lms, "bound_ms": bms, "bound_by": by,
+                 "run": run, "run_plain": run_plain, "run_library": run_library})
     if metric and not m[metric] <= tol:
         raise AssertionError(f"{name} {shape}: {metric} {m[metric]:.3e} > {tol}")
 
@@ -354,8 +377,10 @@ def _check_attention(g, rows):
     # widths, then the path's shapes: the reference encoders at a 1 s prompt
     # (T=94 refer_enc, T=126 RefEncoder: ragged, most of the last key tile
     # masked) and at a 5 s prompt (T=501), and the trunk at two code buckets
+    # ... and DiffusionTts's contextual_attn at a 5 s conditioning mel
+    # (CTX_SHAPE, D=64), drawn after them from the same generator
     shapes = [(edge, s) for s in ((1, 65, 16, 32), (1, 65, 8, 64), (2, 129, 16, 32),
-                                  (2, 129, 8, 64))]
+                                  (2, 129, 8, 64), CTX_SHAPE)]
     shapes += [(g, s) for s in ((1, 94, 16, 32), (1, 126, 8, 64), (1, 501, 8, 64),
                                 (2, 1024, 16, 32), (2, 1600, 16, 32))]
     for gen, (b, t, h, d) in shapes:
@@ -507,18 +532,25 @@ TEXT = "ni3 hao3 shi4 jie4 jin1 tian1 tian1 qi4 hen3 hao3"
 TEXT2 = "wo3 men5 yi4 qi3 qu4 gong1 yuan2 san4 bu4 ba5"
 
 
-def make_tts(device: str):
-    """TextToSpeech(default_config()) on seeded random weights, with every
-    attention output projection made non-zero (the same values on any
-    device)."""
-    from ttts_tpu_torch.api import TextToSpeech
-
-    tts = TextToSpeech(device=device, seed=0)  # default_config()
-    g = torch.Generator().manual_seed(1)
+def nonzero_proj_out(model: torch.nn.Module, seed: int = 1) -> torch.nn.Module:
+    """Every AttentionBlock output projection (zero-initialised, which would
+    hide a wrong attention kernel) made non-zero, the same values on any
+    device."""
+    g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for name, p in tts.diffusion.named_parameters():
+        for name, p in model.named_parameters():
             if name.endswith("proj_out.weight"):
                 p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(p.shape[1]))
+    return model
+
+
+def make_tts(device: str, cfg=None):
+    """TextToSpeech(cfg or default_config()) on seeded random weights, with
+    the diffusion net's attention output projections made non-zero."""
+    from ttts_tpu_torch.api import TextToSpeech
+
+    tts = TextToSpeech(cfg, device=device, seed=0)
+    nonzero_proj_out(tts.diffusion)
     return tts
 
 
@@ -536,12 +568,13 @@ def _check_wavs(tts, wavs) -> None:
             raise AssertionError(f"waveform {wav.shape} vs code_len {cl}")
 
 
-def _watch_call_sites(tts):
-    """Count the calls of each path kernel's model call sites, apart from
-    the dispatch and the wrappers' counts: forward pre-hooks on the GPT
-    blocks (a cached one-row step is a decode, any other call a causal
-    attention), CLVP's unmasked attentions, the diffusion AttentionBlocks
-    (bias; gn_qkv with fused_gn) and ScaleShiftResBlocks, and a wrapper
+def _watch_call_sites(*models):
+    """Count the calls of each path kernel's model call sites in `models`,
+    apart from the dispatch and the wrappers' counts: forward pre-hooks on
+    the GPT blocks (a cached one-row step is a decode, any other call a
+    causal attention), CLVP's unmasked x-transformers attentions, the
+    diffusion AttentionBlocks (bias, or no bias without relative position
+    embeddings; gn_qkv with fused_gn) and ScaleShiftResBlocks, and a wrapper
     around models.quantize.nearest. Returns (counts by kernel, undo)."""
     from ttts_tpu_torch.models import clvp, diffusion_net, gpt, quantize
 
@@ -557,7 +590,8 @@ def _watch_call_sites(tts):
             sites["flash_attention_nobias"] += 1
 
     def attention_block(mod, args, kwargs):
-        sites["flash_attention_bias"] += 1
+        bias = mod.relative_pos_embeddings is not None
+        sites["flash_attention_bias" if bias else "flash_attention_nobias"] += 1
         sites["gn_qkv"] += int(mod.fused_gn)
 
     def resblock(mod, args, kwargs):
@@ -567,7 +601,7 @@ def _watch_call_sites(tts):
              diffusion_net.AttentionBlock: attention_block,
              diffusion_net.ScaleShiftResBlock: resblock}
     handles = [m.register_forward_pre_hook(hooks[type(m)], with_kwargs=True)
-               for model in (tts.gpt, tts.clvp, tts.diffusion) for m in model.modules()
+               for model in models for m in model.modules()
                if type(m) in hooks]
     nearest = quantize.nearest
 
@@ -619,7 +653,7 @@ def phase_end_to_end():
     voice = synthetic_voice(5.0, 44100, seed=2)
     sr_out = tts.cfg.acoustic_mel.sample_rate
     tts.profile_stages = True
-    sites, undo = _watch_call_sites(tts)
+    sites, undo = _watch_call_sites(tts.gpt, tts.clvp, tts.diffusion)
     reset_counts()
     snaps, site_snaps, rtf, walls = [], [], {}, []
     for call, preset in enumerate(("fast", "fast", "ultra_fast")):
@@ -857,6 +891,282 @@ def phase_tiny() -> dict:
         f"{tts.last_code_lens[0]}, {wav.shape[0]} samples, finite; kernels launched "
         f"{launches} (the causal and no-bias attention fit TINY's GPT dk 32 and CLVP "
         "dim_head 64; every other shape took its plain version)")
+    return launches
+
+
+# ---------------------------------------------------------------------- (j)
+
+# Limits of phase (j), each on the relative L2 error of the card against the
+# port's f32 CPU path at the same weights (tests/test_torch_*.py hold the CPU
+# path to the JAX package). Paths that the card runs in bf16 (the UniPC tail
+# through the trunk kernels, the conditioning encoder through the no-bias
+# kernel, DiffusionTts through the bias and resblock kernels) take phase
+# (e)'s limits for the same kind of output; paths the card runs in f32 with
+# TF32 off (the plain CLVP, as the JAX package serves it; the classifier,
+# MelEncoder, PerceiverResampler and the Vocos variants, which reach no
+# kernel) take 1e-4, summation order only; imdct(mdct(x)) is the largest
+# |error| against x away from the edges, as tests/test_mdct.py holds JAX's.
+SLICE7_TOL = {"unipc mel": 2e-2, "unipc wav": 3e-2, "unipc_bh1 mel": 2e-2,
+              "unipc_bh1 wav": 3e-2, "plain clvp latents": 1e-4, "plain clvp sims": 1e-4,
+              "classifier logits": 1e-4, "resnet + symexp head wav": 1e-4,
+              "resnet + cos head wav": 1e-4, "imdct(mdct(x)) max abs": 1e-4,
+              "conditioning encoder": 3e-2, "mel encoder": 1e-4, "perceiver": 1e-4,
+              "diffusion_tts": 3e-2}
+# the kernels of the serving path that a UniPC call launches as a DPM call does
+SAME_AS_DPM = ("vq_nearest", "decode_attention", "flash_attention_bias",
+               "flash_attention_causal", "scale_shift_resblock")
+# DiffusionTts's contextual_attn at a 5 s conditioning mel: 469 frames, two
+# stride-2 convs → T=118, 1024 channels / 16 heads → D=64, with a bias
+CTX_SHAPE = (1, 118, 16, 64)
+
+
+def slice7_config(cfg):
+    """cfg with the UniPC sampler and the plain-Transformer CLVP."""
+    return dataclasses.replace(
+        cfg, diffusion=dataclasses.replace(cfg.diffusion, sampler="unipc"),
+        clvp=dataclasses.replace(cfg.clvp, use_xformers=False))
+
+
+def _typical_decode(gpt_card, gpt_cpu, text, prompt, steps: int, g) -> dict:
+    """inference_speech with typical sampling on the card's GPT (4 rows,
+    shared Gumbel draws), then the card's codes teacher-forced through both
+    GPTs: at each draw the two kept sets, and the CPU's token against the
+    card's where the kept sets are equal and the CPU's winning margin
+    exceeds twice the warped logits' largest difference (the draw is
+    decided)."""
+    from ttts_tpu_torch.models.gpt import inference_speech
+    from ttts_tpu_torch.models.sampling import SamplingParams, sample_gumbel, warp_logits
+
+    sp = SamplingParams(top_p=0.8, temperature=0.8, repetition_penalty=2.0,
+                        typical_sampling=True)
+    k, v = 4, gpt_cpu.cfg.number_mel_codes
+    text_b, prompt_b = text.expand(k, -1), prompt.expand(k, -1)
+    gumbel = sample_gumbel((steps, k, v), g)
+    with torch.no_grad():
+        codes = inference_speech(gpt_card, text_b.cuda(), prompt_b.cuda(), steps, sp,
+                                 gumbel.cuda()).cpu()
+        n = text.shape[1] + 2 + prompt.shape[1] + 1
+        warped = {}
+        for name, model in (("cuda", gpt_card), ("cpu", gpt_cpu)):
+            tb, pb = text_b.to(name), prompt_b.to(name)
+            cache, logits, _, off = model.prefill(tb, pb, n + steps)
+            counts_ = torch.zeros(k, v, dtype=torch.int32, device=name)
+            counts_.scatter_add_(1, pb, torch.ones_like(pb, dtype=torch.int32))
+            rows, out = torch.arange(k, device=name), []
+            for i in range(steps):
+                out.append(warp_logits(logits, counts_, sp).float().cpu())
+                tok = codes[:, i].to(name)
+                counts_[rows, tok] += 1
+                if i + 1 < steps:
+                    logits = model.decode_one(tok, cache, n + i, off + i)
+            warped[name] = out
+    stops = codes == gpt_cpu.cfg.stop_mel_token  # compare the draws before any row stops
+    live = int(torch.where(stops.any(1), stops.int().argmax(1), steps).min())
+    same_kept = decided = mism = 0
+    for i in range(live):
+        wg, wc = warped["cuda"][i], warped["cpu"][i]
+        kg, kc = torch.isfinite(wg), torch.isfinite(wc)
+        both = kg & kc
+        err = float((wg - wc).abs()[both].max()) if both.any() else 0.0
+        for r in range(k):
+            if not torch.equal(kg[r], kc[r]):
+                continue
+            same_kept += 1
+            top2 = torch.topk(wc[r] + gumbel[i, r], 2).values
+            if float(top2[0] - top2[1]) > 2 * err:
+                decided += 1
+                mism += int(int(torch.argmax(wc[r] + gumbel[i, r])) != int(codes[r, i]))
+    return {"draws": live * k, "same_kept": same_kept, "decided": decided, "mismatches": mism}
+
+
+def phase_slice7(dpm_tts, per_fast: dict, card: str) -> dict:
+    """(j) See the module docstring; `dpm_tts` is phase (d)'s TextToSpeech
+    (DPM++, x-transformers CLVP), whose steady "fast" call launched
+    `per_fast`. Returns the steady UniPC call's launches by kernel."""
+    import copy
+
+    from ttts_tpu_torch.api import cast_for_inference
+    from ttts_tpu_torch.config import default_config
+    from ttts_tpu_torch.models.classifier import AudioMiniEncoderWithClassifierHead
+    from ttts_tpu_torch.models.conditioning import (ConditioningEncoder, MelEncoder,
+                                                    PerceiverResampler)
+    from ttts_tpu_torch.models.diffusion_tts_v1 import DiffusionTts
+    from ttts_tpu_torch.models.sampling import apply_typical
+    from ttts_tpu_torch.models.vocos import (IMDCTCosHead, IMDCTSymExpHead,
+                                             VocosResNetBackbone)
+    from ttts_tpu_torch.ops.mdct import imdct, mdct
+
+    cfg = slice7_config(default_config())
+    t0 = time.perf_counter()
+    tts = make_tts("cuda", cfg)
+    log(f"(j) init: TextToSpeech(default_config(), sampler unipc, plain CLVP, cuda) "
+        f"{time.perf_counter() - t0:.2f} s")
+    voice = synthetic_voice(5.0, 44100, seed=2)
+    sr_out = tts.cfg.acoustic_mel.sample_rate
+    tts.profile_stages = dpm_tts.profile_stages = True
+    sites, undo = _watch_call_sites(tts.gpt, tts.clvp, tts.diffusion)
+    tts.tts(TEXT, voice, 44100, max_generate_length=400, seed=0)  # warm-up
+    # steady "fast" calls in turns, DPM (phase (d)'s), UniPC, UniPC, DPM, in
+    # one process: the host sets these walls (PERF.md §5), so only calls
+    # made side by side compare
+    walls, stages, launches = {"dpm": [], "unipc": []}, {"dpm": [], "unipc": []}, None
+    for kind in ("dpm", "unipc", "unipc", "dpm"):
+        t = tts if kind == "unipc" else dpm_tts
+        for n in sites:
+            sites[n] = 0
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        wav = t.tts(TEXT, voice, 44100, max_generate_length=400, seed=1)
+        torch.cuda.synchronize()
+        walls[kind].append(time.perf_counter() - t0)
+        stages[kind].append(t.last_stage_times)
+        _check_wavs(t, [wav])
+        if kind == "unipc":
+            launches, calls = counts(), dict(sites)
+    undo()
+    audio_s = wav.shape[0] / sr_out
+    for kind, name in (("dpm", "DPM++(2M), x-transformers CLVP"),
+                       ("unipc", "UniPC, plain CLVP")):
+        mean = {k: np.mean([st[k] for st in stages[kind]]) * 1e3 for k in stages[kind][0]}
+        log(f"(j) steady tts (fast) with {name}: walls "
+            f"{', '.join(f'{w:.3f}' for w in walls[kind])} s, RTF "
+            f"{np.mean(walls[kind]) / audio_s:.4f} ({audio_s:.2f} s audio) | mean stage ms: "
+            + " ".join(f"{k} {v:.1f}" for k, v in mean.items()))
+    log(f"(j) launches in a steady UniPC call {launches}; its call-site calls {calls}; "
+        f"phase (d)'s steady DPM fast call {per_fast}")
+    # the rerank of the last call's 4 candidates alone, each CLVP flavour
+    ids = np.asarray(tts.tok.encode(TEXT), np.int64)
+    text4 = torch.as_tensor(np.pad(ids, (0, -len(ids) % 16)), device="cuda")[None].expand(4, -1)
+    cand = torch.as_tensor(tts.last_codes, device="cuda")
+    with torch.no_grad():
+        for name, clvp in (("plain, f32", tts.clvp), ("x-transformers, bf16", dpm_tts.clvp)):
+            busy, n, top = _device_busy(lambda: clvp(text4, cand))
+            log(f"(j) CLVP rerank ({name}) of 4 x {cand.shape[1]} codes: device busy "
+                f"{busy:.2f} ms in {n} launches (torch.profiler, one call; {card}); largest: "
+                + ", ".join(f"{k[:40]} {us / 1e3:.2f} ms x{c}" for k, (c, us) in top))
+    bad = {n: (launches[n], calls[n]) for n in KERNELS if launches[n] != calls[n]}
+    bad.update({n: (launches[n], per_fast[n]) for n in SAME_AS_DPM
+                if launches[n] != per_fast[n] or launches[n] == 0})
+    if bad or launches["flash_attention_nobias"]:
+        raise AssertionError(f"(j) launches (launches, calls or DPM's): {bad}; no-bias "
+                             f"launches {launches['flash_attention_nobias']} (want 0)")
+
+    cpu = make_tts("cpu", cfg)
+    g = torch.Generator().manual_seed(13)
+    errs, ms = {}, {}
+    voice1 = synthetic_voice(1.0, 44100, seed=3)
+    codes_c, refer = cpu.get_conditioning(voice1, 44100)
+    ids = np.asarray(cpu.tok.encode(TEXT), np.int64)
+    text = torch.as_tensor(np.pad(ids, (0, -len(ids) % 16)))[None]
+    prompt = torch.nn.functional.pad(codes_c, (0, -codes_c.shape[1] % 16))
+    codes = torch.randint(0, 1024, (1, 32), generator=g)
+    noise = torch.randn(1, 128, 100, generator=g)
+    for sampler in ("unipc", "unipc_bh1"):
+        tts.cfg = cpu.cfg = dataclasses.replace(
+            cfg, diffusion=dataclasses.replace(cfg.diffusion, sampler=sampler))
+        mel_g, wav_g = tts.tail(text.cuda(), codes.cuda(), [32], refer.cuda(), noise.cuda(), 10)
+        mel_c, wav_c = cpu.tail(text, codes, [32], refer, noise, 10)
+        errs[f"{sampler} mel"] = rel_err(mel_g, mel_c)
+        errs[f"{sampler} wav"] = rel_err(wav_g, wav_c)
+    tts.cfg = cpu.cfg = cfg
+    with torch.no_grad():
+        text2, speech = text.expand(2, -1), torch.randint(0, 1024, (2, 64), generator=g)
+        lat_g = tts.clvp.latents(text2.cuda(), speech.cuda())
+        lat_c = cpu.clvp.latents(text2, speech)
+        errs["plain clvp latents"] = max(rel_err(a, b) for a, b in zip(lat_g, lat_c))
+        sims_g, sims_c = tts.clvp(text2.cuda(), speech.cuda()), cpu.clvp(text2, speech)
+        errs["plain clvp sims"] = float((sims_g.cpu() - sims_c).abs().max()
+                                        / cpu.clvp.temperature.exp())
+        logits = torch.randn(4, 1026, generator=g) * 3
+        kept_mism = int((torch.isfinite(apply_typical(logits.cuda(), 0.9)).cpu()
+                         != torch.isfinite(apply_typical(logits, 0.9))).sum())
+    # the serving GPT (bf16, decode kernel) and an f32 copy of the CPU's on
+    # the card (plain attention), each against the f32 CPU path
+    gpt32 = copy.deepcopy(cpu.gpt).cuda()
+    dec = {name: _typical_decode(m, cpu.gpt, text, prompt, 32, g)
+           for name, m in (("bf16", tts.gpt), ("f32", gpt32))}
+    del gpt32
+
+    # the modules callers construct directly, at default_config() widths, seeded
+    _, mel5 = tts.get_conditioning(voice, 44100)  # the 5 s voice's mel (1, 469, 100)
+    mel5 = mel5.float().cpu()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        mods = {"classifier": nonzero_proj_out(
+                    AudioMiniEncoderWithClassifierHead(cfg.classifier)),
+                "backbone": VocosResNetBackbone(cfg.vocos),
+                "symexp": IMDCTSymExpHead(cfg.vocos.dim, 2 * cfg.vocos.hop_length),
+                "cos": IMDCTCosHead(cfg.vocos.dim, 2 * cfg.vocos.hop_length),
+                "conditioning_encoder": nonzero_proj_out(ConditioningEncoder(100, 512, 6, 8)),
+                "mel_encoder": MelEncoder(512, 100),
+                "perceiver": PerceiverResampler(512),
+                "diffusion_tts": nonzero_proj_out(DiffusionTts())}
+    cards = {}
+    for name, m in mods.items():
+        m.eval().requires_grad_(False)
+        cards[name] = copy.deepcopy(m).cuda()
+    for name in ("conditioning_encoder", "diffusion_tts"):  # bf16, as served
+        cast_for_inference(cards[name])
+    mel_clf = torch.randn(2, cfg.classifier.pad_to_mel_frames, 100, generator=g)
+    x_dt = torch.randn(1, 500, 100, generator=g)
+    ts_dt = torch.tensor([500.0])
+    codes_dt = torch.randint(0, 8193, (1, 125), generator=g)
+    x_pr = torch.randn(1, 118, 512, generator=g)
+    mask_pr = torch.arange(118)[None] < 100
+    frame = 2 * cfg.vocos.hop_length
+    wav24 = torch.from_numpy(voice[: 120000 // frame * frame].copy())[None]
+    calls = {  # name → (card call, CPU call)
+        "classifier logits": (lambda m, d: m["classifier"](mel_clf.to(d))),
+        "resnet + symexp head wav": (lambda m, d: m["symexp"](m["backbone"](mel5.to(d)))),
+        "resnet + cos head wav": (lambda m, d: m["cos"](m["backbone"](mel5.to(d)))),
+        "conditioning encoder": (lambda m, d: m["conditioning_encoder"](mel5.to(d))),
+        "mel encoder": (lambda m, d: m["mel_encoder"](mel5.to(d))),
+        "perceiver": (lambda m, d: m["perceiver"](x_pr.to(d), mask_pr.to(d))),
+        "diffusion_tts": (lambda m, d: m["diffusion_tts"](
+            x_dt.to(d), ts_dt.to(d), codes_dt.to(d), mel5.to(d))),
+    }
+    # the launches each call must make: one per AttentionBlock of the bf16
+    # modules (no bias in the conditioning encoder; DiffusionTts: 5
+    # contextual at D=64, 3 code-converter, 3 integrator and 8 trunk blocks
+    # at D=32) and one per ScaleShiftResBlock (3 + 8 + 3); the f32 modules
+    # are outside every kernel's domain (the classifier's attention also by
+    # D=128) and launch none
+    want = {"conditioning encoder": {"flash_attention_nobias": 6},
+            "diffusion_tts": {"flash_attention_bias": 19, "scale_shift_resblock": 14}}
+    launched = {}
+    with torch.no_grad():
+        for name, call in calls.items():
+            torch.cuda.synchronize()
+            reset_counts()
+            out_g = call(cards, "cuda")
+            torch.cuda.synchronize()
+            launched[name] = {n: c for n, c in counts().items() if c}
+            if not torch.isfinite(out_g).all():
+                raise AssertionError(f"(j) {name}: non-finite output on the card")
+            errs[name] = rel_err(out_g, call(mods, "cpu"))
+            ms[name] = median_ms(lambda: call(cards, "cuda"), reps=5, warmup=1)
+        y = imdct(mdct(wav24.cuda(), frame), frame).cpu()
+        inner = slice(frame, wav24.shape[1] - frame)
+        errs["imdct(mdct(x)) max abs"] = float((y[:, inner] - wav24[:, inner]).abs().max())
+    log(f"(j) card vs f32 CPU path, default_config widths: " + ", ".join(
+        f"{k} {v:.3e} (tol {SLICE7_TOL[k]})" for k, v in errs.items()))
+    log(f"(j) apply_typical on seeded f32 logits (4, 1026), mass 0.9: kept-set mismatches "
+        f"card vs CPU {kept_mism} (tol 0); typical decode of 32 steps x 4 rows, teacher-"
+        f"forced, card GPT vs the f32 CPU GPT: " + "; ".join(
+            f"{k}: {d['draws']} draws, kept sets equal in {d['same_kept']}, decided in "
+            f"{d['decided']}, token mismatches among those {d['mismatches']} (tol 0)"
+            for k, d in dec.items()) + " (f32: kept sets equal in >= 90% of the draws)")
+    log(f"(j) kernels launched by each module call: {launched} (want {want}, none "
+        f"elsewhere); median ms on the card "
+        f"(CUDA events, 5 calls; {card}): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    bad = [k for k, v in errs.items() if not v <= SLICE7_TOL[k]]
+    bad += [f"{k} launches {launched[k]}" for k in calls if launched[k] != want.get(k, {})]
+    if (kept_mism or dec["bf16"]["mismatches"] or dec["f32"]["mismatches"]
+            or dec["f32"]["same_kept"] < 0.9 * dec["f32"]["draws"]):
+        bad.append(f"typical: kept-set mismatches {kept_mism}, decode {dec}")
+    if bad:
+        raise AssertionError(f"(j) the card disagrees with the CPU path: {bad}")
     return launches
 
 
@@ -1119,6 +1429,11 @@ def phase_profile(rows, tts) -> None:
         lib = device_us(last["run_library"]) if last["run_library"] else "none"
         log(f"(f) {name}, device time per call at the last (c) shape: kernel "
             f"{device_us(last['run'])} | plain {device_us(last['run_plain'])} | library {lib}")
+    b, t, h, d = CTX_SHAPE
+    ctx = [r for r in rows if r["shape"].startswith(f"B={b} T={t} H={h} D={d} ")][0]
+    log(f"(f) flash_attention_bias at DiffusionTts's contextual_attn shape {CTX_SHAPE}: "
+        f"kernel {device_us(ctx['run'])} | plain {device_us(ctx['run_plain'])} | library "
+        f"{device_us(ctx['run_library'])}")
     # the resblock's two GEMMs alone in bf16 through torch.matmul: a floor
     # for its tensor-core part, not a call of the same function
     g = torch.Generator("cuda").manual_seed(7)
@@ -1167,6 +1482,7 @@ def main() -> int:
     phase_tiny()
     phase_profile(rows, tts)
     phase_planted()
+    slice7 = phase_slice7(tts, per_fast, card)
     table = []
     for name, (_, _, _, source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
@@ -1175,6 +1491,7 @@ def main() -> int:
                       "replaces": replaces, "launches": launches[name],
                       "launches_per_fast_call": per_fast[name],
                       "launches_codec_infer": codec[name],
+                      "launches_unipc_fast_call": slice7[name],
                       "max_abs_err": max(r["max_abs_err"] for r in mine),
                       "ms": last["ms"], "plain_ms": last["plain_ms"],
                       "bound_ms": last["bound_ms"], "bound_by": last["bound_by"],

@@ -48,13 +48,23 @@ def _fill(path, shape, rng):
     name = path[-1]
     if name == "kernel":
         return rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
-    if name in ("scale", "Conv_0/kernel/scale", "g"):
+    if name in ("scale", "g") or name.endswith("/kernel/scale"):
         return 1.0 + 0.1 * rng.standard_normal(shape)
     if name == "embedding":
         return rng.standard_normal(shape)
     if name in ("emb_rel_k", "emb_rel_v"):
         return rng.standard_normal(shape) * shape[-1] ** -0.5
     return 0.1 * rng.standard_normal(shape)
+
+
+def seeded_variables(init, seed: int = 0):
+    """The variables of the flax init call `init()`, their shapes taken with
+    jax.eval_shape (nothing compiled) and each leaf filled by _fill from a
+    numpy seed."""
+    rng = np.random.default_rng(seed)
+    flat = flax.traverse_util.flatten_dict(jax.eval_shape(init))
+    return flax.traverse_util.unflatten_dict(
+        {k: jnp.asarray(_fill(k, v.shape, rng), jnp.float32) for k, v in flat.items()})
 
 
 def random_codec_variables(seed: int = 0):

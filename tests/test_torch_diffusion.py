@@ -6,7 +6,9 @@ The attention output projections are zero-initialised, so every attention
 block would add exactly 0 and hide a wrong attention: these tests give them
 non-zero weights. Tolerances: 1e-4 on activations, 1e-5 on the kernels'
 plain versions against the Pallas kernels in interpret mode, 1e-3 on the
-sampled mel (30 solver steps of f32 drift)."""
+sampled mel (30 solver steps of f32 drift). The samplers on an analytic
+epsilon: 1e-5 relative (the port computes the schedule's scalars in
+float64, the JAX package in f32)."""
 
 import jax
 import jax.numpy as jnp
@@ -16,8 +18,8 @@ import torch
 
 from test_api import TINY
 from test_torch_config import to_port
+from ttts_tpu.diffusion import get_ode_sampler as jget_ode_sampler
 from ttts_tpu.diffusion.dpm import cfg_eps_fn as jcfg
-from ttts_tpu.diffusion.dpm import dpm_solver_pp_2m_sample as jdpm
 from ttts_tpu.models import diffusion_net as jdn
 from ttts_tpu.models import porting as jporting
 from ttts_tpu.ops.pallas.attention import flash_attention as jflash
@@ -25,7 +27,7 @@ from ttts_tpu.ops.pallas.resblock import fused_gn_qkv as jgn_qkv
 from ttts_tpu.ops.pallas.resblock import fused_scale_shift_resblock as jres_kernel
 from ttts_tpu.ops.pallas.resblock import resblock_reference
 from ttts_tpu_torch import porting
-from ttts_tpu_torch.diffusion import cfg_eps_fn, dpm_solver_pp_2m_sample
+from ttts_tpu_torch.diffusion import cfg_eps_fn, get_ode_sampler, uni_pc_sample
 from ttts_tpu_torch.models import diffusion_net as tdn
 from ttts_tpu_torch.ops.cuda.attention import flash_attention
 from ttts_tpu_torch.ops.cuda.resblock import fused_gn_qkv, fused_scale_shift_resblock
@@ -185,7 +187,13 @@ def test_timestep_independent_and_trunk(net):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
-def test_dpm_sampler_with_injected_noise(net):
+SAMPLERS = ["dpm++2m", "unipc", "unipc_bh1"]
+
+
+@pytest.mark.parametrize("sampler", SAMPLERS)
+def test_dpm_sampler_with_injected_noise(net, sampler):
+    """Each ODE sampler of get_ode_sampler through the TINY trunk, with CFG,
+    against ttts_tpu.diffusion.get_ode_sampler's."""
     model, variables, port = net
     cond = _rand(4, 1, T, C.model_channels)
     noise = _rand(5, 1, T, C.in_channels)
@@ -193,14 +201,45 @@ def test_dpm_sampler_with_injected_noise(net):
     biases = model.apply(variables, T, 2, method=model.rel_biases)
     jtrunk = lambda x2, t2, e2: model.apply(  # noqa: E731
         variables, x2, t2, e2, rel_biases=biases, method=model.trunk)
-    want = jdpm(jcfg(jtrunk, jnp.asarray(cond), jnp.asarray(uncond), 2.0),
-                jnp.asarray(noise), steps=30)
+    want = jget_ode_sampler(sampler)(jcfg(jtrunk, jnp.asarray(cond), jnp.asarray(uncond), 2.0),
+                                     jnp.asarray(noise), steps=30)
     with torch.no_grad():
         strips = port.rel_biases(T)
         eps = cfg_eps_fn(lambda x2, t2, e2: port.trunk(x2, t2, e2, strips),
                          torch.from_numpy(cond), port.unconditioned(1, T), 2.0)
-        got = dpm_solver_pp_2m_sample(eps, torch.from_numpy(noise), steps=30)
+        got = get_ode_sampler(sampler)(eps, torch.from_numpy(noise), steps=30)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("steps", [2, 3, 30])
+@pytest.mark.parametrize("sampler", ["unipc", "unipc_bh1"])
+def test_unipc_on_analytic_eps(sampler, steps):
+    """eps(x, t) = 0.7 x + 0.3 tanh(x) cos(2 t): every step's algebra (the
+    order-1 first step with its corrector, the order-2 predictor-corrector
+    steps, the order-1 last step) against JAX's within 1e-5 relative. (JAX's
+    f32 schedule loses ~1e-3 of sigma at t_end to cancellation; UniPC's
+    readings stay at ~1.5e-6 of the port's float64 one, DPM-Solver++(2M)'s
+    two- and three-step runs do not, so they are held through the trunk
+    above only.)"""
+    noise = _rand(6, 2, 16, 8)
+    want = np.asarray(jget_ode_sampler(sampler)(
+        lambda x, t: 0.7 * x + 0.3 * jnp.tanh(x) * jnp.cos(2 * t), jnp.asarray(noise),
+        steps=steps))
+    got = get_ode_sampler(sampler)(
+        lambda x, t: 0.7 * x + 0.3 * torch.tanh(x) * np.cos(2 * t), torch.from_numpy(noise),
+        steps=steps).numpy()
+    assert np.abs(want - noise).max() > 0.1  # the sampler really moves x
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+def test_unipc_refuses_what_jax_refuses():
+    x = torch.zeros(1, 4, 2)
+    with pytest.raises(ValueError):
+        uni_pc_sample(lambda x, t: x, x, steps=1)
+    with pytest.raises(NotImplementedError):
+        uni_pc_sample(lambda x, t: x, x, steps=4, variant="bh3")
+    with pytest.raises(NotImplementedError):
+        get_ode_sampler("ddim")
 
 
 def test_mel_normalisation_and_interp():

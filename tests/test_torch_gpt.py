@@ -123,28 +123,60 @@ def test_decode_attention_plain_matches_reference_and_kernel(interpret_decode, p
     np.testing.assert_array_equal(tv.numpy(), _unpack(np.asarray(vr), h, b))
 
 
-@pytest.mark.parametrize("top_k,top_p", [(0, 0.8), (50, 0.9), (0, 1.0)])
-def test_warper_keep_masks_equal(top_k, top_p):
+def _typical_rows(logits, counts):
+    """Rows 0 and 1 of the typical cases, set after the penalty (counts 0)
+    and the temperature: a uniform row (every surprisal ties: the stable
+    sort keeps vocabulary order), and probabilities 0.5 (token 2), 0.2
+    (tokens 5 and 9) and 0.1 spread over the rest, whose entropy (1.91)
+    makes the tied 0.2 tokens the most typical: at mass 0.3 the boundary
+    falls between them and the lower index is kept."""
+    logits[0] = 0.0
+    row = np.full(logits.shape[1], np.log(0.1 / (logits.shape[1] - 3)))
+    row[[2, 5, 9]] = np.log([0.5, 0.2, 0.2])
+    logits[1] = (row * 0.8).astype(np.float32)
+    counts[:2] = 0
+
+
+@pytest.mark.parametrize("top_k,top_p,typical_mass", [
+    (0, 0.8, None), (50, 0.9, None), (0, 1.0, None),
+    (0, 1.0, 0.9), (0, 1.0, 0.3), (50, 0.8, 0.9), (0, 0.8, 0.3)])
+def test_warper_keep_masks_equal(top_k, top_p, typical_mass):
+    """The warpers in JAX's order (repetition → temperature → typical →
+    top-k → top-p), keep masks bit-equal; with typical sampling also a
+    uniform row and a tie at the mass boundary (_typical_rows)."""
     rng = np.random.default_rng(top_k)
     logits = (rng.standard_normal((4, 1026)) * 3).astype(np.float32)
     logits[:, 7] = logits[:, 9]  # a tie at whatever rank it lands
     counts = rng.integers(0, 2, (4, 1026)).astype(np.int32)
-    params = dict(temperature=0.8, top_p=top_p, top_k=top_k, repetition_penalty=2.0)
+    typical = typical_mass is not None
+    if typical:
+        _typical_rows(logits, counts)
+    params = dict(temperature=0.8, top_p=top_p, top_k=top_k, repetition_penalty=2.0,
+                  typical_sampling=typical, typical_mass=typical_mass or 0.9)
     jl = jnp.asarray(logits)
     jl = jsamp.apply_repetition_penalty(jl, jnp.asarray(counts), 2.0) / 0.8
+    if typical:
+        jl = jsamp.apply_typical(jl, typical_mass)
     want = np.asarray(jsamp.apply_top_p(jsamp.apply_top_k(jl, top_k), top_p))
     got = tsamp.warp_logits(torch.from_numpy(logits), torch.from_numpy(counts),
                             tsamp.SamplingParams(**params)).numpy()
     np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
     keep = np.isfinite(want)
     np.testing.assert_allclose(got[keep], want[keep], atol=1e-6, rtol=0)
+    if typical and top_k == 0 and top_p == 1.0:
+        assert keep[0].sum() == int(np.ceil(typical_mass * 1026)) - 1  # a prefix ...
+        assert keep[0, : keep[0].sum()].all()  # ... in vocabulary order
+        if typical_mass == 0.8:
+            assert sorted(np.flatnonzero(keep[1])) == [2, 5]
 
 
-def test_generation_with_jax_draws_is_identical(gpt):
+@pytest.mark.parametrize("typical", [False, True])
+def test_generation_with_jax_draws_is_identical(gpt, typical):
     model, variables, port = gpt
     text, prompt = _inputs(5, b=2)
     max_gen = 24
-    sampling = jsamp.SamplingParams(top_p=0.8, temperature=0.8, repetition_penalty=2.0)
+    sampling = jsamp.SamplingParams(top_p=0.8, temperature=0.8, repetition_penalty=2.0,
+                                    typical_sampling=typical)
     key = jax.random.key(11)
     want = np.asarray(jgpt.inference_speech(model, variables, jnp.asarray(text),
                                             jnp.asarray(prompt), key, max_gen, sampling))
@@ -154,7 +186,8 @@ def test_generation_with_jax_draws_is_identical(gpt):
         got = inference_speech(port, torch.from_numpy(text).long(),
                                torch.from_numpy(prompt).long(), max_gen,
                                tsamp.SamplingParams(top_p=0.8, temperature=0.8,
-                                                    repetition_penalty=2.0),
+                                                    repetition_penalty=2.0,
+                                                    typical_sampling=typical),
                                torch.from_numpy(gumbel))
     assert (want[:, :4] != C.stop_mel_token).all()  # real draws, not an instant stop
     np.testing.assert_array_equal(got.numpy(), want)

@@ -52,8 +52,8 @@ def make_pair():
         embed=embed, embed_avg=embed, cluster_size=st.cluster_size, inited=st.inited)}}
     jtts.set_params("codec", codec)
     tts = TextToSpeech(to_port(TINY), device="cpu", seed=1)
-    for stage, to_state_dict in porting.STATE_DICT_FNS.items():
-        tts.set_params(stage, to_state_dict(jtts.params[stage]))
+    for stage, variables in jtts.params.items():
+        tts.set_params(stage, porting.STATE_DICT_FNS[stage](variables))
     return jtts, tts
 
 

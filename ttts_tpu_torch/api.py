@@ -7,15 +7,17 @@
                          fused decode attention)
                        → CLVP rerank: the best of each text's k candidates
                        → GPT return_latent of the winners
-                       → AA_diffusion DPM-Solver++(2M), cond/uncond batched 2B
+                       → AA_diffusion through the configured ODE sampler
+                         (DPM-Solver++(2M) or UniPC), cond/uncond batched 2B
                        → Vocos → 24 kHz waveforms.
 
 The presets set k and the number of diffusion steps; "fast" (4 candidates,
 50 steps) is the default, as in the JAX package. Models stay resident on
 `device`, the card unless the caller asks for the CPU; on a CUDA device the
-GPT, CLVP-encoder and diffusion matmul weights are stored in bf16 (norms,
-heads and CLVP's pooling f32) and TF32 is switched off, so the codec's f32
-convolutions and the VQ search stay IEEE f32.
+GPT, diffusion and x-transformers CLVP-encoder matmul weights are stored in
+bf16 (norms, heads and CLVP's pooling f32; the plain-Transformer CLVP stays
+f32) and TF32 is switched off, so the codec's f32 convolutions, the VQ
+search and the plain CLVP stay IEEE f32.
 """
 
 from __future__ import annotations
@@ -108,8 +110,10 @@ class TextToSpeech:
         for m in self._modules().values():
             m.eval().requires_grad_(False).to(self.device)
         if self.device.type == "cuda":
-            for m in (self.gpt, self.diffusion, self.clvp.text_transformer,
-                      self.clvp.speech_transformer):
+            # the plain-Transformer CLVP stays f32, as the JAX package serves it
+            clvp = ((self.clvp.text_transformer, self.clvp.speech_transformer)
+                    if c.clvp.use_xformers else ())
+            for m in (self.gpt, self.diffusion) + clvp:
                 cast_for_inference(m)
         self._cond_cache: Dict[str, tuple] = {}
         # when True, tts synchronises after each stage and records wall times
@@ -135,7 +139,7 @@ class TextToSpeech:
         paths = {"codec": codec, "gpt": gpt, "diffusion": diffusion, "vocos": vocos,
                  "clvp": clvp}
         for name, stage in STAGES.items():
-            if paths[stage] is not None:
+            if paths.get(stage) is not None:
                 tts.set_params(stage, load_state_dict(name, paths[stage]))
         return tts
 

@@ -154,7 +154,7 @@ class CLVPConfig:
     text_mask_percentage: float = 0.0
     voice_mask_percentage: float = 0.0
     # encoder flavour: True → x-transformers (RMSNorm / GLU / rotary), the
-    # serving default and the only one ported; False → the plain Transformer
+    # serving default; False → the plain Transformer (the v2 trainer's)
     use_xformers: bool = True
     dim_head: int = 64
 

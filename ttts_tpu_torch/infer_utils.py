@@ -27,9 +27,10 @@ from ttts_tpu_torch.config import TTTSConfig, default_config
 
 SEP = "\x1f"  # export_release's key separator
 
-# the JAX registry's model names → the serving stage (porting.STATE_DICT_FNS key)
+# the JAX registry's model names → the porting.STATE_DICT_FNS key (the
+# serving stage, or "classifier", which serving does not hold)
 STAGES = {"vqvae": "codec", "gpt": "gpt", "diffusion": "diffusion", "vocos": "vocos",
-          "clvp": "clvp"}
+          "clvp": "clvp", "classifier": "classifier"}
 
 
 def build_model(name: str, cfg: Optional[TTTSConfig] = None) -> nn.Module:
@@ -56,8 +57,12 @@ def build_model(name: str, cfg: Optional[TTTSConfig] = None) -> nn.Module:
         from ttts_tpu_torch.models.clvp import CLVP
 
         model = CLVP(cfg.clvp)
+    elif name == "classifier":
+        from ttts_tpu_torch.models.classifier import AudioMiniEncoderWithClassifierHead
+
+        model = AudioMiniEncoderWithClassifierHead(cfg.classifier)
     else:
-        raise KeyError(f"unknown or unported model {name!r} (ported: {sorted(STAGES)})")
+        raise KeyError(f"unknown model {name!r} (models: {sorted(STAGES)})")
     return model.eval()
 
 
@@ -87,7 +92,7 @@ def load_state_dict(name: str, path: str | pathlib.Path) -> Dict[str, np.ndarray
                          "Orbax checkpoint directories are read by the JAX package, "
                          "ttts_tpu.infer_utils.load_model")
     if name not in STAGES:
-        raise KeyError(f"unknown or unported model {name!r} (ported: {sorted(STAGES)})")
+        raise KeyError(f"unknown model {name!r} (models: {sorted(STAGES)})")
     tree, _ = load_release(p)
     return porting.STATE_DICT_FNS[STAGES[name]](tree)
 

@@ -38,10 +38,19 @@ class Linear(nn.Linear):
         return F.linear(x.to(w.dtype), w, None if self.bias is None else self.bias.to(w.dtype))
 
 
+def same_pad(t: int, kernel_size: int, stride: int) -> Tuple[int, int]:
+    """flax padding="SAME" of a strided conv over t frames: ceil(t / stride)
+    outputs, total pad max((out - 1) * stride + k - t, 0), the smaller half
+    before (so it depends on t: stride 2, k 3 pads (0, 1) at even t)."""
+    total = max((-(-t // stride) - 1) * stride + kernel_size - t, 0)
+    return total // 2, total - total // 2
+
+
 class Conv1d(nn.Module):
     """1D conv on (B, T, C) with torch 'same' padding by default (explicit
-    (left, right) padding otherwise); optional weight norm as
-    g * v / ||v|| with the norm over (in, k), as flax nn.WeightNorm."""
+    (left, right) padding otherwise, or per call: forward's `pad`); optional
+    weight norm as g * v / ||v|| with the norm over (in, k), as flax
+    nn.WeightNorm."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  dilation: int = 1, padding: Optional[Tuple[int, int]] = None,
@@ -70,9 +79,9 @@ class Conv1d(nn.Module):
         v = self.weight_v
         return v * torch.rsqrt((v * v).sum(dim=(1, 2), keepdim=True) + 1e-12) * self.weight_g
 
-    def forward(self, x):
+    def forward(self, x, pad: Optional[Tuple[int, int]] = None):
         w = self.kernel()
-        y = F.pad(x.to(w.dtype).transpose(1, 2), self.pad)
+        y = F.pad(x.to(w.dtype).transpose(1, 2), pad or self.pad)
         b = None if self.bias is None else self.bias.to(w.dtype)
         y = F.conv1d(y, w, b, stride=self.stride, dilation=self.dilation, groups=self.groups)
         return y.transpose(1, 2)

@@ -1,9 +1,8 @@
 """CLVP, port of ttts_tpu/models/clvp.py: the contrastive text ↔ speech-code
-reranker, in its x-transformers flavour (`use_xformers=True`, the serving
-default, clvp.py:38-141, 206-279). The plain-Transformer flavour is not
-ported.
+reranker, in both of its flavours.
 
-Two encoders, one over BPE text tokens and one over speech codes. Each layer
+Two encoders, one over BPE text tokens and one over speech codes. In the
+x-transformers flavour (`use_xformers=True`, the serving default) each layer
 is RMSNorm → attention (dim_head 64 whatever dim / heads are; rotary on the
 first max(dim_head // 2, 32) dims of q, k AND v; biasless q/k/v, biased out)
 → residual, then RMSNorm → GLU feed-forward (one 2x-wide projection,
@@ -15,9 +14,21 @@ speech) pair.
 Unmasked attention (the rerank) runs the flash-attention kernel in its
 no-bias mode through `attention.attend`, which takes the plain version
 outside the kernel's domain; a call with masks (training only) takes the
-masked plain version. Module and parameter names are the reference's
-(ttts/clvp/model.py with CheckpointedXTransformerEncoder), so
-ttts_tpu.models.porting.port_clvp_xformers_state reads this state dict.
+masked plain version.
+
+The plain flavour (`use_xformers=False`, the reference v2 trainer's) adds
+learned absolute position tables (the speech table vocabulary-sized) and
+runs the utils/transformer.py Transformer: per layer LayerScale(PreNorm(
+attention)) and LayerScale(PreNorm(GEGLU feed-forward, exact GELU)), layer
+scales initialised to 0.1, LayerNorm epsilon 1e-5, keys masked with
+-finfo.max, no final norm. Its attention is plain PyTorch in f32, as the
+JAX package computes it outside any kernel and always in f32 (the serving
+path keeps its weights f32 on the card).
+
+Module and parameter names are the reference's (ttts/clvp/model.py with
+CheckpointedXTransformerEncoder, or utils/transformer.py), so
+ttts_tpu.models.porting.port_clvp_xformers_state / port_clvp_state read
+this state dict, and released reference checkpoints load unchanged.
 """
 
 from __future__ import annotations
@@ -148,6 +159,76 @@ class CLVPEncoder(nn.Module):
         return self.transformer.norm(x)
 
 
+class PlainAttention(nn.Module):
+    """utils/transformer.py Attention: one biasless qkv projection, keys
+    masked with -finfo.max, biased output projection (`to_out.0`)."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        self.to_qkv = nn.Linear(dim, 3 * heads * dim_head, bias=False)
+        self.to_out = nn.Sequential(nn.Linear(heads * dim_head, dim))
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        b, t, _ = x.shape
+        q, k, v = self.to_qkv(x).reshape(b, t, 3, self.heads, self.dim_head).unbind(2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q / math.sqrt(self.dim_head), k)
+        if mask is not None:
+            s = s.masked_fill(~mask[:, None, None, :], -torch.finfo(s.dtype).max)
+        a = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+        return self.to_out(a.reshape(b, t, -1))
+
+
+class PlainFeedForward(nn.Module):
+    """Linear → GEGLU (value * GELU(gate), exact GELU) → dropout slot →
+    Linear (`net.0`, `net.3`)."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.Sequential(nn.Linear(dim, 2 * dim * mult), nn.Identity(), nn.Identity(),
+                                 nn.Linear(dim * mult, dim))
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        value, gate = self.net[0](x).chunk(2, dim=-1)
+        return self.net[3](value * F.gelu(gate))
+
+
+class _PreNorm(nn.Module):
+    def __init__(self, dim: int, fn: nn.Module):
+        super().__init__()
+        self.norm, self.fn = nn.LayerNorm(dim, eps=1e-5), fn
+
+
+class _LayerScale(nn.Module):
+    """x + fn.fn(fn.norm(x)) * scale, the scale (1, 1, dim) initialised to 0.1."""
+
+    def __init__(self, dim: int, fn: nn.Module):
+        super().__init__()
+        self.fn = _PreNorm(dim, fn)
+        self.scale = nn.Parameter(torch.full((1, 1, dim), 0.1))
+
+    def forward(self, x, mask):
+        return x + self.fn.fn(self.fn.norm(x), mask) * self.scale
+
+
+class PlainEncoder(nn.Module):
+    """utils/transformer.py Transformer(causal=False): `layers.layers.{i}` =
+    [LayerScale(PreNorm(attention)), LayerScale(PreNorm(feed-forward))], no
+    final norm."""
+
+    def __init__(self, dim: int, depth: int, heads: int, dim_head: int = 64):
+        super().__init__()
+        self.layers = nn.Module()
+        self.layers.layers = nn.ModuleList(
+            nn.ModuleList([_LayerScale(dim, PlainAttention(dim, heads, dim_head)),
+                           _LayerScale(dim, PlainFeedForward(dim))]) for _ in range(depth))
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        for attn, ff in self.layers.layers:
+            x = ff(attn(x, mask), mask)
+        return x
+
+
 def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     """(B, T, D), bool (B, T) or None → (B, D) (clvp/model.py:15-17)."""
     if mask is None:
@@ -159,24 +240,35 @@ def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
 class CLVP(nn.Module):
     def __init__(self, cfg: CLVPConfig):
         super().__init__()
-        if not cfg.use_xformers:
-            raise NotImplementedError("only the x-transformers CLVP flavour is ported")
         c = self.cfg = cfg
         self.text_emb = nn.Embedding(c.num_text_tokens, c.dim_text)
         self.speech_emb = nn.Embedding(c.num_speech_tokens, c.dim_speech)
-        self.text_transformer = CLVPEncoder(c.dim_text, c.text_enc_depth, c.text_heads,
-                                            c.dim_head)
-        self.speech_transformer = CLVPEncoder(c.dim_speech, c.speech_enc_depth,
-                                              c.speech_heads, c.dim_head)
+        encoder = CLVPEncoder if c.use_xformers else PlainEncoder
+        self.text_transformer = encoder(c.dim_text, c.text_enc_depth, c.text_heads, c.dim_head)
+        self.speech_transformer = encoder(c.dim_speech, c.speech_enc_depth, c.speech_heads,
+                                          c.dim_head)
+        if not c.use_xformers:
+            self.text_pos_emb = nn.Embedding(c.text_seq_len, c.dim_text)
+            self.speech_pos_emb = nn.Embedding(c.num_speech_tokens, c.dim_speech)
         self.to_text_latent = nn.Linear(c.dim_text, c.dim_latent, bias=False)
         self.to_speech_latent = nn.Linear(c.dim_speech, c.dim_latent, bias=False)
         self.temperature = nn.Parameter(torch.tensor(1.0))
 
     def latents(self, text, speech_tokens, text_mask=None, voice_mask=None):
         """text (B, Lt), speech_tokens (B, Ls) → the unit-norm text and speech
-        latents (B, dim_latent) f32."""
-        enc_text = self.text_transformer(self.text_emb(text), text_mask).float()
-        enc_speech = self.speech_transformer(self.speech_emb(speech_tokens), voice_mask).float()
+        latents (B, dim_latent) f32. The plain flavour takes at most
+        text_seq_len text and num_speech_tokens speech positions."""
+        text_emb, speech_emb = self.text_emb(text), self.speech_emb(speech_tokens)
+        if not self.cfg.use_xformers:
+            for name, x, table in (("text", text, self.text_pos_emb),
+                                   ("speech", speech_tokens, self.speech_pos_emb)):
+                if x.shape[1] > table.num_embeddings:
+                    raise ValueError(f"CLVP: {x.shape[1]} {name} positions, the table holds "
+                                     f"{table.num_embeddings}")
+            text_emb = text_emb + self.text_pos_emb.weight[: text.shape[1]]
+            speech_emb = speech_emb + self.speech_pos_emb.weight[: speech_tokens.shape[1]]
+        enc_text = self.text_transformer(text_emb, text_mask).float()
+        enc_speech = self.speech_transformer(speech_emb, voice_mask).float()
         text_latent = self.to_text_latent(masked_mean(enc_text, text_mask))
         speech_latent = self.to_speech_latent(masked_mean(enc_speech, voice_mask))
         return (text_latent / text_latent.norm(dim=-1, keepdim=True),

@@ -138,17 +138,23 @@ class AttentionBlock(nn.Module):
 
     `fused_gn` runs qkv(norm(x)) as one fused_gn_qkv call, as the JAX
     package's flag does (diffusion_net.py:160); no model sets it, as in JAX
-    (diffusion_net.py:364-371)."""
+    (diffusion_net.py:364-371). With `relative_pos_embeddings=False` (the
+    classifier's and the conditioning encoder's blocks) there is no bias:
+    the attention takes the kernel's no-bias mode."""
 
-    def __init__(self, channels: int, num_heads: int = 1, fused_gn: bool = False):
+    def __init__(self, channels: int, num_heads: int = 1, fused_gn: bool = False,
+                 relative_pos_embeddings: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.fused_gn = fused_gn
         self.norm = GroupNorm32(channels)
         self.qkv = Conv1x1(channels, 3 * channels)
         self.proj_out = Conv1x1(channels, channels, zero=True)
-        self.relative_pos_embeddings = RelativePositionBias(
-            num_heads, scale=(channels // num_heads) ** 0.5)
+        if relative_pos_embeddings:
+            self.relative_pos_embeddings = RelativePositionBias(
+                num_heads, scale=(channels // num_heads) ** 0.5)
+        else:
+            self.relative_pos_embeddings = None
 
     def forward(self, x, strip: Optional[torch.Tensor] = None):
         b, t, c = x.shape
@@ -162,7 +168,7 @@ class AttentionBlock(nn.Module):
             qkv = self.qkv(self.norm(x))
         qkv = qkv.reshape(b, t, h, 3 * dk)
         q, k, v = qkv[..., :dk], qkv[..., dk:2 * dk], qkv[..., 2 * dk:]
-        if strip is None:
+        if strip is None and self.relative_pos_embeddings is not None:
             strip = self.relative_pos_embeddings.strip(t)
         a = attention.attend(q, k, v, strip)
         return x + self.proj_out(a.reshape(b, t, c))
@@ -236,40 +242,31 @@ class RefEncoder(nn.Module):
         return y.mean(dim=1)
 
 
-class AA_diffusion(nn.Module):
-    def __init__(self, cfg: DiffusionNetConfig):
+class DiffusionTrunk(nn.Module):
+    """The denoiser trunk that AA_diffusion and models.diffusion_tts_v1.
+    DiffusionTts share: the timestep embedding, the conditioning-timestep
+    integrator (3 DiffusionLayers), the input block, the integrating conv,
+    the DiffusionLayers + 3 ScaleShiftResBlocks and GroupNorm → SiLU → conv
+    out, under the reference's names."""
+
+    def __init__(self, ch: int, in_channels: int, out_channels: int, num_heads: int,
+                 num_layers: int):
         super().__init__()
-        self.cfg = c = cfg
-        ch = c.model_channels
-        self.inp_block = Conv1d(c.in_channels, ch, 3)
+        self.channels = ch
+        self.inp_block = Conv1d(in_channels, ch, 3)
         self.time_embed = nn.Sequential(Linear(ch, ch), nn.SiLU(), Linear(ch, ch))
-        self.code_norm = GroupNorm32(ch)
-        self.latent_conditioner = nn.Sequential(
-            Conv1d(c.in_latent_channels, ch, 3),
-            *(AttentionBlock(ch, c.num_heads) for _ in range(3)))
         self.unconditioned_embedding = nn.Parameter(torch.randn(1, ch, 1))
         self.conditioning_timestep_integrator = nn.ModuleList(
-            DiffusionLayer(ch, c.num_heads) for _ in range(3))
-        self.refer_enc = nn.Sequential(
-            Conv1d(c.in_channels, ch, 3),
-            *(AttentionBlock(ch, c.num_heads) for _ in range(3)), RefEncoder(ch))
+            DiffusionLayer(ch, num_heads) for _ in range(3))
         self.integrating_conv = Conv1x1(2 * ch, ch)
         self.layers = nn.ModuleList(
-            [DiffusionLayer(ch, c.num_heads) for _ in range(c.num_layers)]
+            [DiffusionLayer(ch, num_heads) for _ in range(num_layers)]
             + [ScaleShiftResBlock(ch, ch) for _ in range(3)])
-        self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(), Conv1d(ch, c.out_channels, 3))
+        self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(), Conv1d(ch, out_channels, 3))
 
     def unconditioned(self, b: int, t: int) -> torch.Tensor:
         """The learned unconditioned embedding tiled to (b, t, ch)."""
         return self.unconditioned_embedding.transpose(1, 2).expand(b, t, -1)
-
-    def timestep_independent(self, latent, refer, expected_seq_len: int):
-        """latent (B, Tl, in_latent), refer (B, Tr, in_channels) → conditioning
-        (B, expected_seq_len, ch) (aa_model.py:245-257)."""
-        latent_emb = self.latent_conditioner(latent)
-        refer_emb = self.refer_enc(refer)
-        latent_emb = self.code_norm(latent_emb) + refer_emb.float()[:, None, :]
-        return nearest_interp(latent_emb, expected_seq_len)
 
     def _attention_blocks(self):
         return [m.attn for m in self.conditioning_timestep_integrator] + [
@@ -282,9 +279,8 @@ class AA_diffusion(nn.Module):
 
     def trunk(self, x, timesteps, cond_emb, rel_biases=None):
         """Noisy mel (B, T, in) + conditioning (B, T, ch) → (B, T, out) f32."""
-        ch = self.cfg.model_channels
         strips = iter(rel_biases if rel_biases is not None else self.rel_biases(x.shape[1]))
-        t_emb = self.time_embed(timestep_embedding(timesteps, ch))
+        t_emb = self.time_embed(timestep_embedding(timesteps, self.channels))
         h = cond_emb
         for m in self.conditioning_timestep_integrator:
             h = m(h, t_emb, next(strips))
@@ -293,3 +289,25 @@ class AA_diffusion(nn.Module):
         for lyr in self.layers:
             x = lyr(x, t_emb, next(strips)) if isinstance(lyr, DiffusionLayer) else lyr(x, t_emb)
         return self.out(x).float()
+
+
+class AA_diffusion(DiffusionTrunk):
+    def __init__(self, cfg: DiffusionNetConfig):
+        ch = cfg.model_channels
+        super().__init__(ch, cfg.in_channels, cfg.out_channels, cfg.num_heads, cfg.num_layers)
+        self.cfg = c = cfg
+        self.code_norm = GroupNorm32(ch)
+        self.latent_conditioner = nn.Sequential(
+            Conv1d(c.in_latent_channels, ch, 3),
+            *(AttentionBlock(ch, c.num_heads) for _ in range(3)))
+        self.refer_enc = nn.Sequential(
+            Conv1d(c.in_channels, ch, 3),
+            *(AttentionBlock(ch, c.num_heads) for _ in range(3)), RefEncoder(ch))
+
+    def timestep_independent(self, latent, refer, expected_seq_len: int):
+        """latent (B, Tl, in_latent), refer (B, Tr, in_channels) → conditioning
+        (B, expected_seq_len, ch) (aa_model.py:245-257)."""
+        latent_emb = self.latent_conditioner(latent)
+        refer_emb = self.refer_enc(refer)
+        latent_emb = self.code_norm(latent_emb) + refer_emb.float()[:, None, :]
+        return nearest_interp(latent_emb, expected_seq_len)

@@ -1,10 +1,11 @@
 """Logits warpers and the token draw, port of ttts_tpu/models/sampling.py
-(HF semantics: repetition penalty → temperature → top-k → top-p).
+(the JAX package's order: repetition penalty → temperature → typical →
+top-k → top-p).
 
 The draw is argmax(logits + gumbel): jax.random.categorical(key, l) is
 exactly argmax(l + jax.random.gumbel(key, l.shape)), so Gumbel noise taken
 from JAX reproduces its draws, and noise from a torch.Generator gives the
-same distribution. Typical sampling is not ported.
+same distribution.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ class SamplingParams(NamedTuple):
     top_p: float = 0.8
     top_k: int = 0  # 0 = disabled
     repetition_penalty: float = 2.0
+    typical_sampling: bool = False
+    typical_mass: float = 0.9
 
 
 def apply_repetition_penalty(logits, counts, penalty: float):
@@ -50,10 +53,28 @@ def apply_top_p(logits, top_p: float):
     return logits.masked_fill(mass >= top_p, float("-inf"))
 
 
+def apply_typical(logits, mass: float):
+    """Typical decoding, as ttts_tpu's apply_typical: rank the tokens by how
+    close their surprisal is to the entropy and keep them while their
+    cumulative mass, each token's own included, stays below `mass` (the
+    most typical token always). The sort is stable, as jnp.argsort: tied
+    tokens keep their vocabulary order."""
+    logp = torch.log_softmax(logits, dim=-1)
+    p = logp.exp()
+    ent = -torch.where(p > 0, p * logp, 0.0).sum(-1, keepdim=True)
+    order = torch.argsort((-logp - ent).abs(), dim=-1, stable=True)
+    keep_sorted = p.gather(-1, order).cumsum(-1) < mass
+    keep_sorted[..., 0] = True
+    keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+    return logits.masked_fill(~keep, float("-inf"))
+
+
 def warp_logits(logits, counts, params: SamplingParams):
     logits = apply_repetition_penalty(logits, counts, params.repetition_penalty)
     if params.temperature != 1.0:
         logits = logits / params.temperature
+    if params.typical_sampling:
+        logits = apply_typical(logits, params.typical_mass)
     logits = apply_top_k(logits, params.top_k)
     return apply_top_p(logits, params.top_p)
 

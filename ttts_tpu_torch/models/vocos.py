@@ -1,7 +1,15 @@
 """Vocos vocoder (ConvNeXt backbone + ISTFT head), port of ttts_tpu/models/
 vocos.py: log-mel (B, T, 100) → 24 kHz waveform (B, (T-1)*hop). f32
 throughout. State-dict keys are charactr/vocos-mel-24khz's (backbone.*,
-head.out)."""
+head.out).
+
+Also the reference's other backbone and heads, which `Vocos` does not
+select (as in the JAX package) and a caller constructs directly:
+VocosResNetBackbone (weight-normed HiFi-GAN ResBlock1s with layer scale,
+vocoder/models.py:93-118) and the MDCT heads IMDCTSymExpHead /
+IMDCTCosHead (vocoder/heads.py) over ops/mdct.py. Their keys follow the
+reference modules' attributes (`embed`, `resnet.{i}.convs1/convs2/gamma`,
+`out`); no released checkpoint was checked against them."""
 
 from __future__ import annotations
 
@@ -10,6 +18,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ttts_tpu_torch.config import VocosConfig
+from ttts_tpu_torch.models.blocks import Conv1d
+from ttts_tpu_torch.ops.mdct import imdct
 from ttts_tpu_torch.ops.stft import istft
 
 
@@ -68,3 +78,74 @@ class Vocos(nn.Module):
 
     def forward(self, mel):
         return self.head(self.backbone(mel.float()))
+
+
+class VocosResBlock1(nn.Module):
+    """For each dilation d: x + gamma * conv(lrelu(conv_d(lrelu(x)))), both
+    convolutions weight-normed, "SAME" padded, leaky ReLU slope 0.1."""
+
+    def __init__(self, dim: int, kernel_size: int = 3, dilations=(1, 3, 5),
+                 layer_scale_init_value: float = 1.0):
+        super().__init__()
+        self.convs1 = nn.ModuleList(Conv1d(dim, dim, kernel_size, dilation=d, weight_norm=True)
+                                    for d in dilations)
+        self.convs2 = nn.ModuleList(Conv1d(dim, dim, kernel_size, weight_norm=True)
+                                    for _ in dilations)
+        self.gamma = nn.ParameterList(nn.Parameter(torch.full((dim, 1), layer_scale_init_value))
+                                      for _ in dilations)
+
+    def forward(self, x):
+        for c1, c2, gamma in zip(self.convs1, self.convs2, self.gamma):
+            xt = c2(F.leaky_relu(c1(F.leaky_relu(x, 0.1)), 0.1))
+            x = x + gamma[:, 0] * xt
+        return x
+
+
+class VocosResNetBackbone(nn.Module):
+    """mel (B, T, input_channels) → (B, T, dim): a weight-normed k=3 conv,
+    then num_blocks VocosResBlock1s with layer scale 1 / num_blocks / 3."""
+
+    def __init__(self, cfg: VocosConfig, num_blocks: int = 3):
+        super().__init__()
+        self.embed = Conv1d(cfg.input_channels, cfg.dim, 3, weight_norm=True)
+        self.resnet = nn.Sequential(*(
+            VocosResBlock1(cfg.dim, layer_scale_init_value=1.0 / num_blocks / 3)
+            for _ in range(num_blocks)))
+
+    def forward(self, mel):
+        return self.resnet(self.embed(mel.float()))
+
+
+def _symexp(x):
+    return torch.sign(x) * (torch.exp(x.abs()) - 1.0)
+
+
+class IMDCTSymExpHead(nn.Module):
+    """(B, L, dim) → audio: symexp of a linear map to mdct_frame_len // 2
+    coefficients, clipped to +-100, through the IMDCT."""
+
+    def __init__(self, dim: int, mdct_frame_len: int, padding: str = "same",
+                 clip_audio: bool = False):
+        super().__init__()
+        self.frame_len, self.padding, self.clip_audio = mdct_frame_len, padding, clip_audio
+        self.out = nn.Linear(dim, mdct_frame_len // 2)
+
+    def forward(self, x):
+        audio = imdct(_symexp(self.out(x)).clamp(-1e2, 1e2), self.frame_len, self.padding)
+        return audio.clamp(-1.0, 1.0) if self.clip_audio else audio
+
+
+class IMDCTCosHead(nn.Module):
+    """(B, L, dim) → audio: coefficients min(exp(m), 100) * cos(p) from one
+    linear map to mdct_frame_len values, through the IMDCT."""
+
+    def __init__(self, dim: int, mdct_frame_len: int, padding: str = "same",
+                 clip_audio: bool = False):
+        super().__init__()
+        self.frame_len, self.padding, self.clip_audio = mdct_frame_len, padding, clip_audio
+        self.out = nn.Linear(dim, mdct_frame_len)
+
+    def forward(self, x):
+        m, p = self.out(x).chunk(2, dim=-1)
+        audio = imdct(torch.exp(m).clamp_max(1e2) * torch.cos(p), self.frame_len, self.padding)
+        return audio.clamp(-1.0, 1.0) if self.clip_audio else audio

@@ -266,8 +266,9 @@ def _attn_block(sd: StateDict, p: str, tree) -> None:
     _norm(sd, p + ".norm", tree["norm"]["GroupNorm_0"])
     _dense_as_conv1x1(sd, p + ".qkv", tree["qkv"])
     _dense_as_conv1x1(sd, p + ".proj_out", tree["proj"])
-    sd[p + ".relative_pos_embeddings.relative_attention_bias.weight"] = _a(
-        tree["relpos"]["table"]["embedding"])
+    if "relpos" in tree:
+        sd[p + ".relative_pos_embeddings.relative_attention_bias.weight"] = _a(
+            tree["relpos"]["table"]["embedding"])
 
 
 def _ss_resblock(sd: StateDict, p: str, tree) -> None:
@@ -292,25 +293,17 @@ def _ref_encoder(sd: StateDict, p: str, tree) -> None:
         _attn_block(sd, f"{p}.enc.{i + 1}", tree[f"AttentionBlock_{i}"])
 
 
-def aa_diffusion_state_dict(variables) -> StateDict:
-    """JAX AA_diffusion variables → ttts_tpu_torch.models.diffusion_net.
-    AA_diffusion state dict. Inverse of port_aa_diffusion_state."""
-    p = variables["params"]
-    sd: StateDict = {}
+def _diffusion_trunk(sd: StateDict, p) -> None:
+    """The parts of diffusion_net.DiffusionTrunk (AA_diffusion's and
+    DiffusionTts's flax trees name them alike)."""
     _conv_flax(sd, "inp_block", p["inp_block"])
     _dense(sd, "time_embed.0", p["time_embed_0"])
     _dense(sd, "time_embed.2", p["time_embed_1"])
-    _norm(sd, "code_norm", p["code_norm"]["GroupNorm_0"])
-    _conv_flax(sd, "latent_conditioner.0", p["latent_conditioner_0"])
     sd["unconditioned_embedding"] = _a(p["unconditioned_embedding"]).transpose(0, 2, 1)
-    _conv_flax(sd, "refer_enc.0", p["refer_conv"])
-    _ref_encoder(sd, "refer_enc.4", p["refer_pool"])
     _dense_as_conv1x1(sd, "integrating_conv", p["integrating_conv"])
     _norm(sd, "out.0", p["out_norm"]["GroupNorm_0"])
     _conv_flax(sd, "out.2", p["out_conv"])
     for i in range(3):
-        _attn_block(sd, f"latent_conditioner.{i + 1}", p[f"latent_conditioner_{i + 1}"])
-        _attn_block(sd, f"refer_enc.{i + 1}", p[f"refer_attn_{i}"])
         _diffusion_layer(sd, f"conditioning_timestep_integrator.{i}",
                          p[f"conditioning_timestep_integrator_{i}"])
     for i in range(_count(p, "layers_")):
@@ -319,6 +312,43 @@ def aa_diffusion_state_dict(variables) -> StateDict:
             _diffusion_layer(sd, f"layers.{i}", tree)
         else:
             _ss_resblock(sd, f"layers.{i}", tree)
+
+
+def aa_diffusion_state_dict(variables) -> StateDict:
+    """JAX AA_diffusion variables → ttts_tpu_torch.models.diffusion_net.
+    AA_diffusion state dict. Inverse of port_aa_diffusion_state."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _diffusion_trunk(sd, p)
+    _norm(sd, "code_norm", p["code_norm"]["GroupNorm_0"])
+    _conv_flax(sd, "latent_conditioner.0", p["latent_conditioner_0"])
+    _conv_flax(sd, "refer_enc.0", p["refer_conv"])
+    _ref_encoder(sd, "refer_enc.4", p["refer_pool"])
+    for i in range(3):
+        _attn_block(sd, f"latent_conditioner.{i + 1}", p[f"latent_conditioner_{i + 1}"])
+        _attn_block(sd, f"refer_enc.{i + 1}", p[f"refer_attn_{i}"])
+    return sd
+
+
+def diffusion_tts_state_dict(variables) -> StateDict:
+    """JAX DiffusionTts variables → ttts_tpu_torch.models.diffusion_tts_v1.
+    DiffusionTts state dict, under the reference module's attribute names
+    (ttts/diffusion/model.py: latent_conditioner = conv + 4 attention
+    blocks, contextual_embedder = 2 strided convs + 5 attention blocks); no
+    released checkpoint was checked against them."""
+    p = variables["params"]
+    sd: StateDict = {"code_embedding.weight": _a(p["code_embedding"]["embedding"])}
+    _diffusion_trunk(sd, p)
+    _norm(sd, "code_norm", p["code_norm"]["GroupNorm_0"])
+    _conv_flax(sd, "latent_conditioner.0", p["latent_conditioner_conv"])
+    _conv_flax(sd, "mel_head", p["mel_head"])
+    for i in range(2):
+        _conv_flax(sd, f"contextual_embedder.{i}", p[f"contextual_convs_{i}"])
+    for prefix, name, first in (("code_converter", "code_converter", 0),
+                                ("latent_conditioner", "latent_conditioner_attn", 1),
+                                ("contextual_embedder", "contextual_attn", 2)):
+        for i in range(_count(p, name + "_")):
+            _attn_block(sd, f"{prefix}.{first + i}", p[f"{name}_{i}"])
     return sd
 
 
@@ -343,9 +373,26 @@ def _clvp_encoder(sd: StateDict, p: str, tree) -> None:
     _norm(sd, p + ".transformer.norm", tree["LayerNorm_0"])
 
 
+def _clvp_plain_encoder(sd: StateDict, p: str, tree) -> None:
+    """clvp.PlainEncoder → the reference's utils/transformer.py Transformer
+    keys: layers.layers.{i}.0 = LayerScale(PreNorm(attention)), .1 =
+    LayerScale(PreNorm(GEGLU feed-forward))."""
+    for i in range(_count(tree, "PlainEncoderLayer_")):
+        lyr, lp = tree[f"PlainEncoderLayer_{i}"], f"{p}.layers.layers.{i}"
+        _norm(sd, lp + ".0.fn.norm", lyr["LayerNorm_0"])
+        sd[lp + ".0.fn.fn.to_qkv.weight"] = _a(lyr["Dense_0"]["kernel"]).T
+        _dense(sd, lp + ".0.fn.fn.to_out.0", lyr["Dense_1"])
+        sd[lp + ".0.scale"] = _a(lyr["attn_gamma"])
+        _norm(sd, lp + ".1.fn.norm", lyr["LayerNorm_1"])
+        _dense(sd, lp + ".1.fn.fn.net.0", lyr["Dense_2"])
+        _dense(sd, lp + ".1.fn.fn.net.3", lyr["Dense_3"])
+        sd[lp + ".1.scale"] = _a(lyr["ff_gamma"])
+
+
 def clvp_state_dict(variables) -> StateDict:
-    """JAX CLVP variables (use_xformers=True) → ttts_tpu_torch.models.clvp.
-    CLVP state dict. Inverse of port_clvp_xformers_state."""
+    """JAX CLVP variables, either flavour → ttts_tpu_torch.models.clvp.CLVP
+    state dict. Inverse of port_clvp_xformers_state (use_xformers=True) and
+    port_clvp_state (use_xformers=False, with the position tables)."""
     p = variables["params"]
     sd: StateDict = {
         "text_emb.weight": _a(p["Embed_0"]["embedding"]),
@@ -354,8 +401,14 @@ def clvp_state_dict(variables) -> StateDict:
         "to_speech_latent.weight": _a(p["Dense_1"]["kernel"]).T,
         "temperature": _a(p["temperature"]).reshape(()),
     }
-    _clvp_encoder(sd, "text_transformer", p["CLVPEncoder_0"])
-    _clvp_encoder(sd, "speech_transformer", p["CLVPEncoder_1"])
+    if "PlainEncoder_0" in p:
+        sd["text_pos_emb.weight"] = _a(p["text_pos_emb"])
+        sd["speech_pos_emb.weight"] = _a(p["speech_pos_emb"])
+        _clvp_plain_encoder(sd, "text_transformer", p["PlainEncoder_0"])
+        _clvp_plain_encoder(sd, "speech_transformer", p["PlainEncoder_1"])
+    else:
+        _clvp_encoder(sd, "text_transformer", p["CLVPEncoder_0"])
+        _clvp_encoder(sd, "speech_transformer", p["CLVPEncoder_1"])
     return sd
 
 
@@ -382,10 +435,135 @@ def vocos_state_dict(variables) -> StateDict:
     return sd
 
 
+def _wn_conv(sd: StateDict, p: str, tree, i: int) -> None:
+    """flax WeightNorm(nn.Conv) as the parent's Conv_i + WeightNorm_i → a
+    weight-normed torch conv (weight_v (out, in, k), weight_g (out, 1, 1))."""
+    _conv(sd, p, {"Conv_0": tree[f"Conv_{i}"],
+                  "WeightNorm_0": {"Conv_0/kernel/scale":
+                                   tree[f"WeightNorm_{i}"][f"Conv_{i}/kernel/scale"]}})
+
+
+def vocos_resnet_backbone_state_dict(variables) -> StateDict:
+    """JAX VocosResNetBackbone variables → ttts_tpu_torch.models.vocos.
+    VocosResNetBackbone state dict, under the reference's attribute names
+    (vocoder/models.py: embed, resnet.{i}.convs1/convs2/gamma, each gamma
+    (dim, 1)); no released checkpoint was checked against them."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _wn_conv(sd, "embed", p, 0)
+    for i in range(_count(p, "VocosResBlock1_")):
+        blk, bp = p[f"VocosResBlock1_{i}"], f"resnet.{i}"
+        gammas = sorted((k for k in blk if k.startswith("gamma_")), key=lambda k: int(k[6:]))
+        for j, g in enumerate(gammas):
+            _wn_conv(sd, f"{bp}.convs1.{j}", blk, 2 * j)
+            _wn_conv(sd, f"{bp}.convs2.{j}", blk, 2 * j + 1)
+            sd[f"{bp}.gamma.{j}"] = _a(blk[g])[:, None]
+    return sd
+
+
+def imdct_head_state_dict(variables) -> StateDict:
+    """JAX IMDCTSymExpHead / IMDCTCosHead variables → the port's head
+    (`out`, the reference's attribute)."""
+    sd: StateDict = {}
+    _dense(sd, "out", variables["params"]["Dense_0"])
+    return sd
+
+
+# ------------------------------------------------- classifier, conditioning
+
+
+def classifier_state_dict(variables) -> StateDict:
+    """JAX AudioMiniEncoderWithClassifierHead variables → ttts_tpu_torch.
+    models.classifier state dict, under the reference's attribute names
+    (ttts/classifier/model.py: enc.init, enc.res = resnet blocks and
+    Downsample ops, enc.final, enc.attn, head); no released checkpoint was
+    checked against them."""
+    p = variables["params"]
+    enc = p["AudioMiniEncoder_0"]
+    sd: StateDict = {}
+    _conv_flax(sd, "enc.init.0", enc["Conv_0"])
+    depth = _count(enc, "Conv_") - 1
+    per = _count(enc, "ClassifierResBlock_") // depth
+    for d in range(depth):
+        for r in range(per):
+            blk, bp = enc[f"ClassifierResBlock_{d * per + r}"], f"enc.res.{d * (per + 1) + r}"
+            _norm(sd, bp + ".in_layers.0", blk["GroupNorm32_0"]["GroupNorm_0"])
+            _conv_flax(sd, bp + ".in_layers.2", blk["Conv_0"])
+            _norm(sd, bp + ".out_layers.0", blk["GroupNorm32_1"]["GroupNorm_0"])
+            _conv_flax(sd, bp + ".out_layers.3", blk["Conv_1"])
+        _conv_flax(sd, f"enc.res.{d * (per + 1) + per}.op", enc[f"Conv_{d + 1}"])
+    _norm(sd, "enc.final.0", enc["GroupNorm32_0"]["GroupNorm_0"])
+    _dense_as_conv1x1(sd, "enc.final.2", enc["Dense_0"])
+    for i in range(_count(enc, "AttentionBlock_")):
+        _attn_block(sd, f"enc.attn.{i}", enc[f"AttentionBlock_{i}"])
+    _dense(sd, "head", p["Dense_0"])
+    return sd
+
+
+def conditioning_encoder_state_dict(variables) -> StateDict:
+    """JAX ConditioningEncoder variables → ttts_tpu_torch.models.conditioning.
+    ConditioningEncoder (init, attn.{i}; the reference's attribute names, no
+    released checkpoint checked against them)."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _conv_flax(sd, "init", p["Conv_0"])
+    for i in range(_count(p, "AttentionBlock_")):
+        _attn_block(sd, f"attn.{i}", p[f"AttentionBlock_{i}"])
+    return sd
+
+
+def mel_encoder_state_dict(variables) -> StateDict:
+    """JAX MelEncoder variables → ttts_tpu_torch.models.conditioning.
+    MelEncoder (`encoder`, the reference's nn.Sequential: convs at 0, 2, 6,
+    GroupNorms at 3, 7, ResBlock stacks at 1, 5, 9; no released checkpoint
+    checked against it)."""
+    p = variables["params"]
+    n = _count(p, "_MelResBlock_") // 3
+    sd: StateDict = {}
+    for j, slot in enumerate((0, 2, 6)):
+        _conv_flax(sd, f"encoder.{slot}", p[f"Conv_{j}"])
+    for j, slot in enumerate((3, 7)):
+        _norm(sd, f"encoder.{slot}", p[f"GroupNorm32_{j}"]["GroupNorm_0"])
+    for j, slot in enumerate((1, 5, 9)):
+        for r in range(n):
+            blk, bp = p[f"_MelResBlock_{j * n + r}"], f"encoder.{slot}.{r}.net"
+            _conv_flax(sd, bp + ".0", blk["Conv_0"])
+            _norm(sd, bp + ".1", blk["GroupNorm32_0"]["GroupNorm_0"])
+            _conv_flax(sd, bp + ".3", blk["Conv_1"])
+            _norm(sd, bp + ".4", blk["GroupNorm32_1"]["GroupNorm_0"])
+    return sd
+
+
+def perceiver_resampler_state_dict(variables) -> StateDict:
+    """JAX PerceiverResampler variables → ttts_tpu_torch.models.conditioning.
+    PerceiverResampler (latents; layers.{i}.0 attention with to_kv = [k; v];
+    layers.{i}.1 feed-forward; norm). No released checkpoint was checked
+    against these names."""
+    p = variables["params"]
+    depth = _count(p, "Dense_") // 6
+    sd: StateDict = {"latents": _a(p["latents"])}
+    for i in range(depth):
+        d = lambda j: p[f"Dense_{6 * i + j}"]  # noqa: E731
+        ln = lambda j: p[f"LayerNorm_{3 * i + j}"]  # noqa: E731
+        ap, fp = f"layers.{i}.0", f"layers.{i}.1"
+        _norm(sd, ap + ".norm_latents", ln(0))
+        _norm(sd, ap + ".norm_context", ln(1))
+        sd[ap + ".to_q.weight"] = _a(d(0)["kernel"]).T
+        sd[ap + ".to_kv.weight"] = np.concatenate([_a(d(1)["kernel"]).T,
+                                                   _a(d(2)["kernel"]).T])
+        sd[ap + ".to_out.weight"] = _a(d(3)["kernel"]).T
+        _norm(sd, fp + ".norm", ln(2))
+        _dense(sd, fp + ".net.0", d(4))
+        _dense(sd, fp + ".net.2", d(5))
+    _norm(sd, "norm", p[f"LayerNorm_{3 * depth}"])
+    return sd
+
+
 STATE_DICT_FNS = {
     "codec": synthesizer_trn_state_dict,
     "gpt": unified_voice_state_dict,
     "diffusion": aa_diffusion_state_dict,
     "vocos": vocos_state_dict,
     "clvp": clvp_state_dict,
+    "classifier": classifier_state_dict,
 }

@@ -48,7 +48,7 @@ Phases, one printed line each, any failure raising (non-zero exit):
   (i) TextToSpeech on tests/test_api.py's TINY config on the card (after
       (h)): the shape gates send every shape outside a kernel's domain to its
       plain version;
-  (j) the rest of the inference surface (run last): TextToSpeech at
+  (j) the rest of the inference surface: TextToSpeech at
       default_config() widths with sampler "unipc" and the plain-Transformer
       CLVP (use_xformers=False), a warm-up, then steady "fast" calls in
       turns with phase (d)'s TextToSpeech (DPM, UniPC, UniPC, DPM): finite
@@ -69,7 +69,24 @@ Phases, one printed line each, any failure raising (non-zero exit):
       MelEncoder, PerceiverResampler and one DiffusionTts forward (bf16, the
       bias kernel at D=32 and 64, the resblock kernel) on the 5 s voice's
       mel; median ms of each module call, and torch.profiler device time of
-      the rerank alone in each CLVP flavour.
+      the rerank alone in each CLVP flavour;
+  (k) training (run last), at default_config() widths on a seeded synthetic
+      dataset (64 rows: pinyin texts, 200-600 codes, 200-400 mel frames):
+      train_gpt for 12 steps of batch 32 with checkpoints at 6 and 12, a
+      resume from 6 to 12, then train_diffusion on the GPT it trained, the
+      same way; every loss and grad norm finite, no kernel launched by a GPT
+      step and only the frozen GPT's causal attention (one per layer) by a
+      diffusion step; median steady step ms, tokens/s and mel frames/s,
+      peak memory and the device's busy share of 3 steps under
+      torch.profiler; the causal kernel against its plain version at the
+      largest shape the diffusion step gave it (ATTN_TOL; a row of the
+      kernel table); the card's bf16 step against the port's f32 CPU step
+      at the same width, weights, 4 rows and draws (TRAIN_TOL: the frozen
+      GPT's latent, losses, the global grad norm, per-tensor gradient
+      cosines with the trunk's attention and resblock weights named); each
+      raw kernel wrapper refusing an input that requires grad; both trained
+      models exported (export_release) and served by
+      TextToSpeech.from_checkpoints.
 The last two lines are the kernel table as JSON and then
 {"ok": true, "device": {...}}. Imports no JAX; needs a CUDA card.
 """
@@ -1467,6 +1484,426 @@ def phase_profile(rows, tts) -> None:
         log(f"(f)   {us / 1e3:9.2f} ms {n:6d} launches  {name}")
 
 
+# ---------------------------------------------------------------------- (k)
+
+# Card (bf16 autocast over f32 weights) against the port's f32 CPU step at
+# the same full width, weights, batch and injected draws: relative error of
+# the loss and of the global grad norm, and the cosine of each gradient
+# tensor (the named trunk attention and resblock weights, and the least of
+# all tensors). A tensor whose gradient is zero on one side and not on the
+# other fails outright: that is a cut gradient. The limits are a few times
+# the largest readings of three runs on an H100 80GB HBM3 at 700 W (GPT /
+# diffusion: loss 1.2e-5 / 1.9e-4, grad norm 4.4e-4 / 1.2e-3, least cosine
+# 0.99998 / 0.99958, least named cosine 0.99998 / 0.99991; PERF.md). The
+# diffusion step's frozen-GPT latent (the causal kernel's output, on the
+# card) is held to the CPU's at the limit phase (e) holds the same GPT's
+# bf16 logits to.
+TRAIN_TOL = {"loss_rel": 1e-3, "grad_norm_rel": 5e-3, "named_cos": 0.9995, "min_cos": 0.998,
+             "latent_rel": 3e-2}
+NOISE = 1e-6  # of the global grad norm: a tensor's gradient below it is zero analytically
+TRAIN_STEPS, SAVE_FREQ, TRAIN_BATCH = 12, 6, 32
+
+
+def _train_data(root, rows: int = 64, seed: int = 0) -> str:
+    """A seeded manifest of `rows` pinyin texts with `.vq.npy` sidecars of
+    200-600 codes and `.mel.npy` sidecars of 200-400 frames x 100."""
+    from ttts_tpu_torch.data.manifest import save_sidecar, write_manifest
+
+    rng = np.random.default_rng(seed)
+    texts = [TEXT, TEXT2, "ta1 shuo1 ming2 tian1 hui4 xia4 yu3"]
+    table = []
+    for i in range(rows):
+        path = str(root / f"utt{i:03d}.wav")
+        save_sidecar(path, "vq", rng.integers(0, 1024, int(rng.integers(200, 601))))
+        save_sidecar(path, "mel", (rng.standard_normal((int(rng.integers(200, 401)), 100))
+                                   - 4.0).astype(np.float32))
+        table.append({"text": texts[i % len(texts)], "path": path})
+    write_manifest(root / "train.jsonl", table)
+    return str(root / "train.jsonl")
+
+
+def _run_trainer(make, what: str, tokens) -> dict:
+    """Train the trainer `make()` builds to its end on the card, counting its
+    kernel launches; → its history, launches, median step ms after 3
+    warm-up steps and throughput: the tokens (frames) of every steady step
+    over their summed seconds. A first run meets each bucket's batch
+    shape for the first time (cuBLAS and SDPA pick their kernels, the
+    allocator grows); a resumed run takes batches whose shapes the first
+    run already met: its steps are the steady ones. Each step ends in a
+    synchronise, so its seconds are the card's."""
+    trainer = make()
+    start = trainer.step
+    work = []
+    step_fn = trainer.step_fn
+
+    def timed_step(state, batch, key):
+        work.append(tokens(batch))
+        metrics = step_fn(state, batch, key)
+        torch.cuda.synchronize()
+        return metrics
+
+    trainer.step_fn = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trainer.train()
+    launches = counts()
+    hist = list(trainer.history)
+    for h in hist:
+        loss, norm = float(h["loss"]), float(h["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(norm)) or h["nonfinite_skipped"]:
+            raise RuntimeError(f"(k) {what}: step {h['step']} loss {loss} grad norm {norm}")
+    steady = hist[3:] if len(hist) > 3 else hist
+    secs = [h["seconds"] for h in steady]
+    ms, spread = float(np.median(secs)) * 1e3, (min(secs) * 1e3, max(secs) * 1e3)
+    per_s = sum(work[len(hist) - len(steady):]) / sum(secs)
+    log(f"(k) {what}: steps {start + 1}-{trainer.step}, loss "
+        f"{float(hist[0]['loss']):.4f} -> {float(hist[-1]['loss']):.4f}, grad norms "
+        f"{min(float(h['grad_norm']) for h in hist):.3f}-"
+        f"{max(float(h['grad_norm']) for h in hist):.3f}, all finite | {len(steady)} steady "
+        f"steps: median {ms:.2f} ms ({spread[0]:.2f}-{spread[1]:.2f}) | peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"trainer": trainer, "launches": launches, "ms": ms, "spread": spread,
+            "per_s": per_s, "steps": len(hist)}
+
+
+def _grad_reading(names, card, cpu) -> dict:
+    """Per-tensor cosines of card and CPU gradients, and the global norms.
+    A tensor whose CPU gradient is below NOISE of the global norm is zero
+    analytically (e.g. an attention key bias, which the softmax cancels) and
+    rounding noise on both sides: it is listed, not held to a cosine."""
+    norm = lambda gs: math.sqrt(sum(float(g.double().square().sum()) for g in gs  # noqa: E731
+                                    if g is not None))
+    floor = NOISE * norm(cpu)
+    cos, cut, noise = {}, [], []
+    for n, a, b in zip(names, card, cpu):
+        if a is None and b is None:
+            continue  # a layer both sides skipped (layer drop)
+        a = torch.zeros_like(b) if a is None else a.detach().double().cpu()
+        b = torch.zeros_like(a) if b is None else b.detach().double()
+        na, nb = float(a.norm()), float(b.norm())
+        if nb <= floor:
+            noise.append(n)
+        elif na == 0.0:
+            cut.append(n)
+        else:
+            cos[n] = float((a * b).sum() / (na * nb))
+    return {"cos": cos, "cut": cut, "noise": noise, "norm_card": norm(card),
+            "norm_cpu": norm(cpu)}
+
+
+def _hold_train(what: str, loss_card, loss_cpu, reading, named) -> None:
+    lrel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    nrel = abs(reading["norm_card"] - reading["norm_cpu"]) / reading["norm_cpu"]
+    cos = reading["cos"]
+    worst = min(cos, key=cos.get)
+    named_cos = {n: cos[n] for n in named if n in cos}
+    log(f"(k) {what}, card vs f32 CPU: loss {loss_card:.6f} vs {loss_cpu:.6f}, rel "
+        f"{lrel:.3e} (tol {TRAIN_TOL['loss_rel']}) | grad norm {reading['norm_card']:.5f} vs "
+        f"{reading['norm_cpu']:.5f}, rel {nrel:.3e} (tol {TRAIN_TOL['grad_norm_rel']}) | "
+        f"least cosine of {len(cos)} tensors {cos[worst]:.5f} ({worst}; tol "
+        f"{TRAIN_TOL['min_cos']}) | cut gradients {reading['cut'] or 'none'} | zero "
+        f"analytically (below {NOISE} of the norm): {reading['noise'] or 'none'}")
+    for n, c in named_cos.items():
+        log(f"(k)   cosine {c:.5f} {n} (tol {TRAIN_TOL['named_cos']})")
+    bad = (reading["cut"] or lrel > TRAIN_TOL["loss_rel"] or nrel > TRAIN_TOL["grad_norm_rel"]
+           or cos[worst] < TRAIN_TOL["min_cos"] or len(named_cos) != len(named)
+           or any(c < TRAIN_TOL["named_cos"] for c in named_cos.values()))
+    if bad:
+        raise RuntimeError(f"(k) {what}: the card's step disagrees with the CPU's")
+
+
+def _compare_gpt(cfg, sd, batch) -> None:
+    """One GPT loss and its gradients on the card (bf16) and the CPU (f32)."""
+    import copy
+
+    from ttts_tpu_torch.models.gpt import UnifiedVoice
+    from ttts_tpu_torch.train.steps import autocast, gpt_loss
+
+    cpu = UnifiedVoice(dataclasses.replace(cfg.gpt, dropout=0.0))
+    cpu.load_state_dict(sd)
+    card = copy.deepcopy(cpu).cuda().train()
+    cpu.train()
+    out = {}
+    for name, model, dev in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with autocast(torch.device(dev), torch.bfloat16 if dev == "cuda" else None):
+            loss, _, _ = gpt_loss(model, b, cfg.train.text_weight, cfg.train.mel_weight)
+        out[name] = (loss.item(), torch.autograd.grad(loss, list(model.parameters()),
+                                                      allow_unused=True))
+    names = [n for n, _ in cpu.named_parameters()]
+    named = [f"gpt.h.{i}.attn.{w}.weight" for i in range(cfg.gpt.layers)
+             for w in ("c_attn", "c_proj")]
+    _hold_train("GPT step", out["card"][0], out["cpu"][0],
+                _grad_reading(names, out["card"][1], out["cpu"][1]), named)
+
+
+def _compare_diffusion(cfg, gpt_sd, net_sd, batch) -> None:
+    """One diffusion loss and its gradients on the card (bf16, the frozen
+    GPT's latent through the causal kernel) and the CPU (f32), on the same
+    injected draws, with the attention output projections made non-zero
+    (zero at init, they would zero every qkv gradient)."""
+    import copy
+
+    from ttts_tpu_torch.diffusion.gaussian import GaussianDiffusion, get_named_beta_schedule
+    from ttts_tpu_torch.models.diffusion_net import AA_diffusion, DiffusionLayer
+    from ttts_tpu_torch.models.gpt import UnifiedVoice
+    from ttts_tpu_torch.train.steps import autocast, diffusion_draws, diffusion_loss, frozen_latent
+
+    diffuser = GaussianDiffusion(betas=get_named_beta_schedule(
+        cfg.diffusion.noise_schedule, cfg.diffusion.trained_timesteps))
+    gpt_cpu = UnifiedVoice(cfg.gpt)
+    gpt_cpu.load_state_dict(gpt_sd)
+    gpt_cpu.requires_grad_(False)
+    gpt_card = copy.deepcopy(gpt_cpu).cuda()
+    net_cpu = AA_diffusion(cfg.diffusion_net)
+    net_cpu.load_state_dict(net_sd)
+    nonzero_proj_out(net_cpu)
+    net_card = copy.deepcopy(net_cpu).cuda().train()
+    net_cpu.train()
+    draws = diffusion_draws(5, batch["mel"].shape, diffuser.num_timesteps, len(net_cpu.layers),
+                            cfg.train.unconditioned_percentage, cfg.diffusion_net.layer_drop,
+                            torch.device("cpu"))
+    out = {}
+    for name, net, gpt, dev in (("card", net_card, gpt_card, "cuda"),
+                                ("cpu", net_cpu, gpt_cpu, "cpu")):
+        amp = torch.bfloat16 if dev == "cuda" else None
+        b = {k: v.to(dev) for k, v in batch.items()}
+        d = {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in draws.items()}
+        reset_counts()
+        latent = frozen_latent(gpt, b, amp)
+        with autocast(torch.device(dev), amp):
+            loss, _, _ = diffusion_loss(net, diffuser, b, latent, d)
+        out[name] = (loss.item(), torch.autograd.grad(loss, list(net.parameters()),
+                                                      allow_unused=True), counts(), latent)
+    if out["card"][2]["flash_attention_causal"] != cfg.gpt.layers:
+        raise RuntimeError(f"(k) the card's frozen GPT launched {out['card'][2]}")
+    lat = rel_err(out["card"][3], out["cpu"][3])
+    finite = bool(torch.isfinite(out["card"][3]).all())
+    log(f"(k) frozen GPT latent {tuple(out['cpu'][3].shape)}, card (bf16, {cfg.gpt.layers} "
+        f"causal launches) vs f32 CPU: relative error {lat:.3e} (tol "
+        f"{TRAIN_TOL['latent_rel']}), finite {finite}")
+    if not (lat <= TRAIN_TOL["latent_rel"] and finite):
+        raise RuntimeError("(k) the card's frozen GPT latent disagrees with the CPU's")
+    names = [n for n, _ in net_cpu.named_parameters()]
+    trunk = [i for i, m in enumerate(net_cpu.layers) if isinstance(m, DiffusionLayer)]
+    named = [f"layers.{i}.{w}.weight" for i in trunk
+             for w in ("attn.qkv", "attn.proj_out", "resblk.in_layers.2", "resblk.out_layers.3")
+             if draws["layer_keep"][i] or i in (0, len(net_cpu.layers) - 1)]
+    _hold_train("diffusion step", out["card"][0], out["cpu"][0],
+                _grad_reading(names, out["card"][1], out["cpu"][1]), named)
+
+
+class _CausalShapes:
+    """Within the block, the (B, T, H, D) of every causal kernel launch (a
+    spy in place of attention.flash_attention, which attention.attend looks
+    up at each call; it shares the wrapper's launch counts)."""
+
+    def __enter__(self):
+        from ttts_tpu_torch.ops.cuda import attention
+
+        self.shapes, self.mod, self.fn = set(), attention, attention.flash_attention
+
+        def spy(q, k, v, strip=None, causal=False):
+            if causal and strip is None:
+                self.shapes.add(tuple(q.shape))
+            return self.fn(q, k, v, strip, causal)
+
+        spy.launches = self.fn.launches
+        attention.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.flash_attention = self.fn
+
+
+def _check_training_attention(rows, shapes) -> None:
+    """The causal kernel against its plain version at the largest shape the
+    diffusion train step gave it (the frozen GPT over a batch of 32), as
+    views of the GPT's fused [q; k; v] projection, held at ATTN_TOL and
+    timed as phase (c) times the other shapes."""
+    from ttts_tpu_torch.ops.cuda.attention import flash_attention_plain
+
+    b, t, h, d = max(shapes, key=lambda s: (s[0] * s[1], s))
+    fn = wrapper("flash_attention_causal")
+    g = torch.Generator("cuda").manual_seed(12)
+    qkv = torch.randn(b, t, 3 * h * d, generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, t, h, d) for i in range(3))
+    got, want = fn(q, k, v, causal=True), flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+    log(f"(k) causal kernel shapes of the diffusion train step: {sorted(shapes)}")
+    _timed(rows, "flash_attention_causal", f"B={b} T={t} H={h} D={d} bf16 (diffusion train "
+           "step)", compare(got, want), "rel_l2", ATTN_TOL,
+           partial(fn, q, k, v, causal=True),
+           partial(flash_attention_plain, q, k, v, causal=True),
+           partial(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
+                   is_causal=True), _attention_work(b, t, h, d, False, True))
+    row = rows[-1]
+    log(f"(k) device time at that shape (torch.profiler): kernel {device_us(row['run'])} | "
+        f"plain {device_us(row['run_plain'])} | SDPA {device_us(row['run_library'])}")
+
+
+def _raw_wrappers_refuse_grad() -> None:
+    """Each raw kernel wrapper raises on an input that requires grad under
+    grad mode (the dispatches take the plain version there)."""
+    from ttts_tpu_torch.ops.cuda import attention, decode_attention, resblock, vq
+
+    g = torch.Generator("cuda").manual_seed(11)
+    bf = dict(dtype=torch.bfloat16, device="cuda")
+    q = torch.randn(1, 64, 2, 64, generator=g, device="cuda").to(torch.bfloat16)
+    res = list(_resblock_args(g, 1, 64, 128))
+    qkv = list(_gn_qkv_args(g, 1, 64, 128))
+    x, cb = _vq_inputs(g, 40, 64)
+    cache = [torch.zeros(1, 2, 8, 64, **bf) for _ in range(2)]
+    rows = torch.randn(1, 2, 64, generator=g, device="cuda").to(torch.bfloat16)
+    calls = {
+        "flash_attention": lambda: attention.flash_attention(q.clone().requires_grad_(), q, q,
+                                                             causal=True),
+        "fused_scale_shift_resblock": lambda: resblock.fused_scale_shift_resblock(
+            res[0].clone().requires_grad_(), *res[1:], groups=8),
+        "fused_gn_qkv": lambda: resblock.fused_gn_qkv(qkv[0].clone().requires_grad_(),
+                                                      *qkv[1:], groups=8),
+        "vq_nearest": lambda: vq.vq_nearest(x.clone().requires_grad_(), cb),
+        "decode_attention": lambda: decode_attention.decode_attention(
+            rows.clone().requires_grad_(), rows, rows, *cache, 3),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            if "requires grad" not in str(e):
+                raise
+        else:
+            raise RuntimeError(f"(k) {name} launched on an input that requires grad")
+    log(f"(k) raw wrappers on requires_grad inputs under grad mode: each raises ValueError "
+        f"({', '.join(calls)})")
+
+
+def _training_busy(trainer, batch, steps: int = 3):
+    """(wall ms without the profiler, device-busy ms under it, launches) of
+    `steps` more steps of `trainer` on one batch (warmed up first)."""
+    b = trainer._put(batch)
+
+    def run():
+        for i in range(steps):
+            trainer.step_fn(trainer.state, b, 2 + i)
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy_ms, n, _ = _device_busy(run)
+    return wall, busy_ms, n
+
+
+def phase_training(card: str, rows: list) -> dict:
+    """(k) GPT and diffusion training at default_config() widths on the
+    card: 12 steps each with checkpoints at 6 and 12 and a resume from 6,
+    launch counts, step time, throughput, memory and busy share; the causal
+    kernel at the largest shape the diffusion step gave it (a row added to
+    `rows`); the card's step against the f32 CPU step; the raw wrappers'
+    refusal of grad; the trained models exported and served."""
+    import shutil
+    import tempfile
+    import pathlib
+
+    from ttts_tpu_torch.api import TextToSpeech
+    from ttts_tpu_torch.config import default_config
+    from ttts_tpu_torch.data.datasets import DiffusionDataset, GptTtsDataset
+    from ttts_tpu_torch.train import mains
+    from ttts_tpu_torch.train.checkpoints import export_model
+
+    t_phase = time.perf_counter()
+    base = default_config()
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, train_steps=TRAIN_STEPS, save_freq=SAVE_FREQ, batch_size=TRAIN_BATCH))
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ttts_train_"))
+    try:
+        manifest = _train_data(root)
+        gpt_tokens = lambda b: float((b["text_lengths"] + 2 + b["wav_lengths"] // 1024  # noqa: E731
+                                      + 2).sum())
+        runs = {}
+        runs["gpt"] = _run_trainer(lambda: mains.gpt_trainer(cfg, manifest, str(root / "gpt"), "cuda"),
+                                   "GPT training", gpt_tokens)
+        ckpts = runs["gpt"]["trainer"].ckpt.all_steps()
+        if ckpts[-2:] != [SAVE_FREQ, TRAIN_STEPS]:
+            raise RuntimeError(f"(k) GPT checkpoints {ckpts}")
+        shutil.copytree(root / "gpt", root / "gpt_resume")
+        (root / "gpt_resume" / "ckpt" / f"step_{TRAIN_STEPS:08d}.pt").unlink()
+        again = _run_trainer(lambda: mains.gpt_trainer(cfg, manifest, str(root / "gpt_resume"),
+                                                     "cuda"),
+                             f"GPT resumed from step {SAVE_FREQ}", gpt_tokens)
+        if again["steps"] != TRAIN_STEPS - SAVE_FREQ or again["trainer"].step != TRAIN_STEPS:
+            raise RuntimeError("(k) the GPT resume did not continue from step 6 to 12")
+        gpt_sd = mains.load_gpt_state_dict(root / "gpt")
+        frames = lambda b: float(b["mel_lengths"].sum())  # noqa: E731
+        with _CausalShapes() as causal:
+            runs["diffusion"] = _run_trainer(
+                lambda: mains.diffusion_trainer(cfg, manifest, gpt_sd, str(root / "diff"),
+                                                "cuda"),
+                "diffusion training", frames)
+        shutil.copytree(root / "diff", root / "diff_resume")
+        (root / "diff_resume" / "ckpt" / f"step_{TRAIN_STEPS:08d}.pt").unlink()
+        again_d = _run_trainer(
+            lambda: mains.diffusion_trainer(cfg, manifest, gpt_sd, str(root / "diff_resume"),
+                                            "cuda"),
+            f"diffusion resumed from step {SAVE_FREQ}", frames)
+        if again_d["steps"] != TRAIN_STEPS - SAVE_FREQ:
+            raise RuntimeError("(k) the diffusion resume did not continue from step 6 to 12")
+        # launches: none in a GPT step, the frozen GPT's causal attention (one
+        # per layer) in a diffusion step, nothing else
+        per_step = {}
+        for what, run in runs.items():
+            want = {n: 0 for n in KERNELS}
+            if what == "diffusion":
+                want["flash_attention_causal"] = cfg.gpt.layers * run["steps"]
+            if run["launches"] != want:
+                raise RuntimeError(f"(k) {what} training launched {run['launches']}, "
+                                   f"expected {want}")
+            per_step[what] = {n: c / run["steps"] for n, c in run["launches"].items()}
+            log(f"(k) {what} training launches over {run['steps']} steps: "
+                f"{ {n: c for n, c in run['launches'].items() if c} or 'none'} (as expected)")
+        _check_training_attention(rows, causal.shapes)
+        log(f"(k) throughput over the resumed runs' steady steps (every shape met before; "
+            f"their tokens over their summed seconds): GPT {again['per_s']:.0f} text+mel "
+            f"tokens/s (median step {again['ms']:.2f} ms, {again['spread'][0]:.2f}-"
+            f"{again['spread'][1]:.2f}), diffusion {again_d['per_s']:.0f} mel frames/s (median "
+            f"step {again_d['ms']:.2f} ms, {again_d['spread'][0]:.2f}-"
+            f"{again_d['spread'][1]:.2f}) | card {card}")
+        gds, dds = GptTtsDataset(manifest), DiffusionDataset(manifest)
+        gbatch = gds.collate([gds[i] for i in range(TRAIN_BATCH)])
+        dbatch = dds.collate([dds[i] for i in range(TRAIN_BATCH)])
+        for what, run, batch in (("GPT", runs["gpt"], gbatch),
+                                 ("diffusion", runs["diffusion"], dbatch)):
+            wall, busy, n = _training_busy(run["trainer"], batch)
+            log(f"(k) {what}: 3 steady steps of batch {TRAIN_BATCH}: wall {wall:.1f} ms without "
+                f"the profiler, device busy {busy:.1f} ms in {n} launches under it: busy share "
+                f"{busy / wall:.3f}")
+        small = lambda b: {k: torch.as_tensor(v[:4]).long() if v.dtype.kind in "iu"  # noqa: E731
+                           else torch.as_tensor(v[:4]) for k, v in b.items()}
+        net_sd = runs["diffusion"]["trainer"].state.model.state_dict()
+        _compare_gpt(cfg, {k: v.cpu() for k, v in gpt_sd.items()}, small(gbatch))
+        _compare_diffusion(cfg, {k: v.cpu() for k, v in gpt_sd.items()},
+                           {k: v.cpu() for k, v in net_sd.items()}, small(dbatch))
+        _raw_wrappers_refuse_grad()
+        export_model("gpt", gpt_sd, root / "gpt.npz")
+        export_model("diffusion", net_sd, root / "diffusion.npz")
+        tts = TextToSpeech.from_checkpoints(cfg, gpt=root / "gpt.npz",
+                                            diffusion=root / "diffusion.npz", device="cuda")
+        wav = tts.tts(TEXT, synthetic_voice(3.0, 44100, seed=4), 44100, preset="ultra_fast",
+                      max_generate_length=200, seed=1)
+        if not (wav.size and np.isfinite(wav).all()):
+            raise RuntimeError("(k) the trained models served a non-finite waveform")
+        log(f"(k) export_release of both trained models -> TextToSpeech.from_checkpoints -> "
+            f"tts 'ultra_fast': {wav.size} finite samples | phase (k) "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        return per_step
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1483,6 +1920,7 @@ def main() -> int:
     phase_profile(rows, tts)
     phase_planted()
     slice7 = phase_slice7(tts, per_fast, card)
+    train = phase_training(card, rows)
     table = []
     for name, (_, _, _, source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
@@ -1492,6 +1930,8 @@ def main() -> int:
                       "launches_per_fast_call": per_fast[name],
                       "launches_codec_infer": codec[name],
                       "launches_unipc_fast_call": slice7[name],
+                      "launches_gpt_train_step": train["gpt"][name],
+                      "launches_diffusion_train_step": train["diffusion"][name],
                       "max_abs_err": max(r["max_abs_err"] for r in mine),
                       "ms": last["ms"], "plain_ms": last["plain_ms"],
                       "bound_ms": last["bound_ms"], "bound_by": last["bound_by"],

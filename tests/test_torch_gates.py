@@ -7,7 +7,10 @@ dispatch (`vq.nearest`, `decode_attention.pick`, `attention.attend`,
 wrapper only where its gate holds, else the kernel's plain version,
 deciding before any launch. On the CPU every
 wrapper runs its plain version, so the call sites are watched through
-spies on the wrappers."""
+spies on the wrappers. Under autograd (grad mode on and an input that
+requires grad) every dispatch takes the plain version, whose graph the
+kernels (no backward) would cut: sentinels in place of the wrappers show
+it."""
 
 import dataclasses
 
@@ -178,3 +181,81 @@ def test_clvp_gate(monkeypatch, dim_head, fits):
     with torch.no_grad():
         attn(torch.randn(2, 6, 64).to(BF))
     assert calls == ({"kernel": 1, "plain": 0} if fits else {"kernel": 0, "plain": 1})
+
+
+# ------------------------------------------------ the gates under autograd
+
+
+def _sentinel(monkeypatch, module, kernel: str) -> list:
+    """Replace `module.kernel` with a sentinel that records its call."""
+    hits = []
+
+    def sentinel(*args, **kwargs):
+        hits.append(kernel)
+        return "sentinel"
+
+    monkeypatch.setattr(module, kernel, sentinel)
+    return hits
+
+
+def _dispatches():
+    """(dispatch module, raw wrapper, call(requires_grad)) of each op, at
+    shapes and dtypes inside its kernel's domain; requires_grad marks the
+    first floating input."""
+    def attend(rg):
+        q, k, v = _qkv_views(1, 8, 2, 64, False)
+        return attention.attend(q.detach().requires_grad_(rg), k, v, causal=True)
+
+    def res(rg):
+        args = list(_resblock_args(1, 8, 128))
+        args[0] = torch.zeros_like(args[0]).requires_grad_(rg)
+        return resblock.scale_shift_resblock(*args, groups=8)
+
+    def qkv(rg):
+        return resblock.gn_qkv(torch.zeros(1, 8, 128, dtype=BF).requires_grad_(rg),
+                               torch.ones(128), torch.zeros(128),
+                               torch.zeros(128, 384, dtype=BF), torch.zeros(384), groups=8)
+
+    def nearest(rg):
+        return vq.nearest(torch.randn(7, 32).requires_grad_(rg), torch.randn(16, 32))
+
+    def pick(rg):
+        q = torch.zeros(1, 2, 64, dtype=BF).requires_grad_(rg)
+        return decode_attention.pick(BF, 64, q)(q, q, q, *(torch.zeros(1, 2, 8, 64, dtype=BF)
+                                                           for _ in range(2)), 3)
+
+    return {"attend": (attention, "flash_attention", attend),
+            "scale_shift_resblock": (resblock, "fused_scale_shift_resblock", res),
+            "gn_qkv": (resblock, "fused_gn_qkv", qkv),
+            "nearest": (vq, "vq_nearest", nearest),
+            "pick": (decode_attention, "decode_attention", pick)}
+
+
+@pytest.mark.parametrize("op", list(_dispatches()))
+def test_dispatch_takes_plain_version_when_autograd_records(monkeypatch, op):
+    """The kernel's wrapper is reached only where autograd would not record
+    the call: never with an input that requires grad under grad mode (the
+    kernels have no backward), and again under torch.no_grad."""
+    module, kernel, call = _dispatches()[op]
+    hits = _sentinel(monkeypatch, module, kernel)
+    assert call(False) == "sentinel" and hits == [kernel]
+    out = call(True)
+    assert isinstance(out, torch.Tensor) and len(hits) == 1
+    if out.is_floating_point():
+        assert out.requires_grad  # the plain version kept the graph
+    with torch.no_grad():
+        assert call(True) == "sentinel" and len(hits) == 2
+
+
+def test_records_grad_rule():
+    from ttts_tpu_torch.ops.cuda import _build
+
+    x = torch.zeros(2, requires_grad=True)
+    assert _build.records_grad(x, None, torch.zeros(2))
+    assert not _build.records_grad(torch.zeros(2), None)
+    assert not _build.records_grad(torch.zeros(2, dtype=torch.long))
+    with torch.no_grad():
+        assert not _build.records_grad(x)
+    with pytest.raises(ValueError, match="requires grad"):
+        _build.refuse_grad("k", x)
+    _build.refuse_grad("k", x.detach())

@@ -9,7 +9,15 @@ its op's dispatch (`attention.attend`, `resblock.scale_shift_resblock`),
 which takes the plain version for shapes and dtypes outside the kernel's
 domain, as the JAX package gates its kernels; on the CPU every wrapper runs
 its plain version. Matmuls compute in their weights' dtype (bf16 after
-`cast_for_inference` on the card), GroupNorms in f32.
+`cast_for_inference` on the card; training keeps f32 weights under bf16
+autocast), GroupNorms in f32.
+
+Train mode (model.train(), `forward`): the unconditioned-embedding swap per
+row (`uncond`), stochastic depth over trunk layers 0 < i < n-1
+(`layer_keep`) and dropout in the resblocks (cfg.dropout). The two draws
+are explicit arguments (train/steps.py draws them from its generator; the
+tests inject the JAX package's), and autograd-recorded calls take each
+kernel's plain version through the dispatches' gates.
 """
 
 from __future__ import annotations
@@ -128,7 +136,9 @@ class RelativePositionBias(nn.Module):
         buckets = _t5_bucket(np.arange(-(t - 1), t), self.num_buckets, self.max_distance)
         w = self.relative_attention_bias.weight
         idx = torch.from_numpy(buckets).to(w.device)
-        return w[idx].t().float() * self.scale
+        # F.embedding, not w[idx]: its backward sums repeated rows in a fixed
+        # order, so a training step repeats bit for bit
+        return F.embedding(idx, w).t().float() * self.scale
 
 
 class AttentionBlock(nn.Module):
@@ -179,16 +189,21 @@ class ScaleShiftResBlock(nn.Module):
     in-conv (aa_model.py:72-133); runs as one fused resblock call
     (resblock.scale_shift_resblock)."""
 
-    def __init__(self, channels: int, emb_channels: int):
+    def __init__(self, channels: int, emb_channels: int, dropout: float = 0.0):
         super().__init__()
         self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(),
                                        Conv1x1(channels, channels))
         self.emb_layers = nn.Sequential(nn.SiLU(), Linear(emb_channels, 2 * channels))
-        self.out_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(), nn.Dropout(0.0),
+        self.out_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(), nn.Dropout(dropout),
                                         Conv1d(channels, channels, 3))
 
     def forward(self, x, emb):
         scale, shift = self.emb_layers(emb).float().chunk(2, dim=-1)
+        if self.training and self.out_layers[2].p > 0:
+            # dropout sits between the second SiLU and conv3: the unfused path
+            h = self.in_layers[2](F.silu(self.in_layers[0](x)))
+            h = F.silu(self.out_layers[0](h) * (1 + scale[:, None]) + shift[:, None])
+            return x + self.out_layers[3](self.out_layers[2](h))
         gn1, gn2 = self.in_layers[0], self.out_layers[0]
         a2 = gn2.weight.float() * (1 + scale)
         b2 = gn2.bias.float() * (1 + scale) + shift
@@ -204,9 +219,9 @@ class ScaleShiftResBlock(nn.Module):
 class DiffusionLayer(nn.Module):
     """ScaleShiftResBlock + AttentionBlock (aa_model.py:135-148)."""
 
-    def __init__(self, channels: int, num_heads: int):
+    def __init__(self, channels: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
-        self.resblk = ScaleShiftResBlock(channels, channels)
+        self.resblk = ScaleShiftResBlock(channels, channels, dropout)
         self.attn = AttentionBlock(channels, num_heads)
 
     def forward(self, x, time_emb, strip=None):
@@ -250,18 +265,18 @@ class DiffusionTrunk(nn.Module):
     out, under the reference's names."""
 
     def __init__(self, ch: int, in_channels: int, out_channels: int, num_heads: int,
-                 num_layers: int):
+                 num_layers: int, dropout: float = 0.0):
         super().__init__()
         self.channels = ch
         self.inp_block = Conv1d(in_channels, ch, 3)
         self.time_embed = nn.Sequential(Linear(ch, ch), nn.SiLU(), Linear(ch, ch))
         self.unconditioned_embedding = nn.Parameter(torch.randn(1, ch, 1))
         self.conditioning_timestep_integrator = nn.ModuleList(
-            DiffusionLayer(ch, num_heads) for _ in range(3))
+            DiffusionLayer(ch, num_heads, dropout) for _ in range(3))
         self.integrating_conv = Conv1x1(2 * ch, ch)
         self.layers = nn.ModuleList(
-            [DiffusionLayer(ch, num_heads) for _ in range(num_layers)]
-            + [ScaleShiftResBlock(ch, ch) for _ in range(3)])
+            [DiffusionLayer(ch, num_heads, dropout) for _ in range(num_layers)]
+            + [ScaleShiftResBlock(ch, ch, dropout) for _ in range(3)])
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(), Conv1d(ch, out_channels, 3))
 
     def unconditioned(self, b: int, t: int) -> torch.Tensor:
@@ -277,8 +292,11 @@ class DiffusionTrunk(nn.Module):
         sampling run rather than per step."""
         return [a.relative_pos_embeddings.strip(t_len) for a in self._attention_blocks()]
 
-    def trunk(self, x, timesteps, cond_emb, rel_biases=None):
-        """Noisy mel (B, T, in) + conditioning (B, T, ch) → (B, T, out) f32."""
+    def trunk(self, x, timesteps, cond_emb, rel_biases=None, layer_keep=None):
+        """Noisy mel (B, T, in) + conditioning (B, T, ch) → (B, T, out) f32.
+        layer_keep: one bool per trunk layer, or None (keep all); layers 0 <
+        i < n-1 with a False keep are skipped (stochastic depth,
+        aa_model.py:274-279; JAX's where(keep, y, x) on the whole batch)."""
         strips = iter(rel_biases if rel_biases is not None else self.rel_biases(x.shape[1]))
         t_emb = self.time_embed(timestep_embedding(timesteps, self.channels))
         h = cond_emb
@@ -286,15 +304,20 @@ class DiffusionTrunk(nn.Module):
             h = m(h, t_emb, next(strips))
         x = self.inp_block(x)
         x = self.integrating_conv(torch.cat([x, h.to(x.dtype)], dim=-1))
-        for lyr in self.layers:
-            x = lyr(x, t_emb, next(strips)) if isinstance(lyr, DiffusionLayer) else lyr(x, t_emb)
+        n = len(self.layers)
+        for i, lyr in enumerate(self.layers):
+            strip = next(strips) if isinstance(lyr, DiffusionLayer) else None
+            if layer_keep is not None and 0 < i < n - 1 and not layer_keep[i]:
+                continue
+            x = lyr(x, t_emb, strip) if isinstance(lyr, DiffusionLayer) else lyr(x, t_emb)
         return self.out(x).float()
 
 
 class AA_diffusion(DiffusionTrunk):
     def __init__(self, cfg: DiffusionNetConfig):
         ch = cfg.model_channels
-        super().__init__(ch, cfg.in_channels, cfg.out_channels, cfg.num_heads, cfg.num_layers)
+        super().__init__(ch, cfg.in_channels, cfg.out_channels, cfg.num_heads, cfg.num_layers,
+                         cfg.dropout)
         self.cfg = c = cfg
         self.code_norm = GroupNorm32(ch)
         self.latent_conditioner = nn.Sequential(
@@ -304,10 +327,27 @@ class AA_diffusion(DiffusionTrunk):
             Conv1d(c.in_channels, ch, 3),
             *(AttentionBlock(ch, c.num_heads) for _ in range(3)), RefEncoder(ch))
 
-    def timestep_independent(self, latent, refer, expected_seq_len: int):
+    def timestep_independent(self, latent, refer, expected_seq_len: int, uncond=None):
         """latent (B, Tl, in_latent), refer (B, Tr, in_channels) → conditioning
-        (B, expected_seq_len, ch) (aa_model.py:245-257)."""
+        (B, expected_seq_len, ch) (aa_model.py:245-257). uncond: (B,) bool,
+        rows whose conditioning becomes the unconditioned embedding
+        (training's classifier-free dropout), or None."""
         latent_emb = self.latent_conditioner(latent)
         refer_emb = self.refer_enc(refer)
         latent_emb = self.code_norm(latent_emb) + refer_emb.float()[:, None, :]
+        if uncond is not None:
+            u = self.unconditioned(*latent_emb.shape[:2]).to(latent_emb.dtype)
+            latent_emb = torch.where(uncond[:, None, None], u, latent_emb)
         return nearest_interp(latent_emb, expected_seq_len)
+
+    def forward(self, x, timesteps, latent=None, refer=None, conditioning_free: bool = False,
+                uncond=None, layer_keep=None):
+        """The reference's entry (aa_model.py:260-289; ttts_tpu AA_diffusion.
+        __call__): noisy mel (B, T, in) → (B, T, out) f32. In training the
+        draws come in as `uncond` and `layer_keep` (see timestep_independent
+        and trunk), dropout from model.train()."""
+        if conditioning_free:
+            cond = self.unconditioned(*x.shape[:2])
+        else:
+            cond = self.timestep_independent(latent, refer, x.shape[1], uncond)
+        return self.trunk(x, timesteps, cond, layer_keep=layer_keep)

@@ -14,9 +14,20 @@ through `attention.attend`), else the kernel's plain version, as the JAX
 package gates its decode kernel.
 
 Dtypes: activations follow the matmul weights' dtype (bf16 after
-`cast_for_inference` on the card); LayerNorms and heads compute in f32.
-Only the serving half is ported: prefill, decode_one, the return_latent
-forward and `inference_speech`. Training losses wait.
+`cast_for_inference` on the card; training keeps f32 weights and computes
+in bf16 under autocast, as the JAX package's `_amp_dtype`); LayerNorms and
+heads compute in f32.
+
+Training (`forward(..., return_latent=False)`, model.train()): the stop
+rewrite, the aligned [start; x] / [x; stop] streams and the text and mel
+cross-entropies, each a mean over every position, with embedding, residual
+and attention dropout (GPT2Stack / GPT2Block). Training attention is
+`F.scaled_dot_product_attention(is_causal=True, dropout_p=...)` in train
+mode where attention dropout is on or autograd records the call, where the
+JAX package runs its einsum path with dropout (its optional TPU flash route
+is a library kernel, not one of the repo's); every other forward goes
+through `attention.attend`, whose gate takes the plain version when autograd
+records the call.
 """
 
 from __future__ import annotations
@@ -30,7 +41,7 @@ import torch.nn.functional as F
 
 from ttts_tpu_torch.config import GPTConfig
 from ttts_tpu_torch.models.sampling import SamplingParams, sample_logits
-from ttts_tpu_torch.ops.cuda import attention, decode_attention
+from ttts_tpu_torch.ops.cuda import _build, attention, decode_attention
 
 Cache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -63,9 +74,12 @@ class LayerNorm(nn.LayerNorm):
 
 
 class GPT2Block(nn.Module):
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0,
+                 attn_dropout: Optional[float] = None):
         super().__init__()
         self.heads = heads
+        self.dropout = dropout  # HF resid_pdrop; attn_pdrop defaults to it
+        self.attn_dropout = dropout if attn_dropout is None else attn_dropout
         self.ln_1 = LayerNorm(dim, eps=1e-5)
         self.attn = nn.Module()
         self.attn.c_attn = Conv1D(dim, 3 * dim)
@@ -82,13 +96,14 @@ class GPT2Block(nn.Module):
         prefix is self-contained); T == 1 is one decode step at row `pos`
         through `step`, the decode-attention function (decode_attention.pick's
         choice, made here when not given). Without: causal self-attention
-        over x."""
+        over x; in train mode (no cache), where attention dropout is on or
+        autograd records the call, through SDPA with attention dropout."""
         b, t, d = x.shape
         h = self.heads
         dk = d // h
         q, k, v = self.attn.c_attn(self.ln_1(x)).split(d, dim=-1)
         if cache is not None and t == 1:
-            step = step or decode_attention.pick(q.dtype, dk)
+            step = step or decode_attention.pick(q.dtype, dk, q)
             a = step(q.reshape(b, h, dk), k.reshape(b, h, dk), v.reshape(b, h, dk), *cache, pos)
             a = a.reshape(b, 1, d).to(x.dtype)
         else:
@@ -96,9 +111,16 @@ class GPT2Block(nn.Module):
             if cache is not None:
                 cache[0][:, :, pos: pos + t] = k.transpose(1, 2)
                 cache[1][:, :, pos: pos + t] = v.transpose(1, 2)
-            a = attention.attend(q, k, v, causal=True).reshape(b, t, d)
-        x = x + self.attn.c_proj(a)
-        return x + self.mlp.c_proj(gelu_new(self.mlp.c_fc(self.ln_2(x))))
+            train = self.training and (self.attn_dropout > 0 or _build.records_grad(q, k, v))
+            if train and cache is None:
+                a = F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                    dropout_p=self.attn_dropout).transpose(1, 2).reshape(b, t, d)
+            else:
+                a = attention.attend(q, k, v, causal=True).reshape(b, t, d)
+        p = self.dropout if self.training else 0.0
+        x = x + F.dropout(self.attn.c_proj(a), p)
+        return x + F.dropout(self.mlp.c_proj(gelu_new(self.mlp.c_fc(self.ln_2(x)))), p)
 
 
 class UnifiedVoice(nn.Module):
@@ -116,7 +138,8 @@ class UnifiedVoice(nn.Module):
                     self.text_pos_embedding.emb, self.mel_pos_embedding.emb):
             nn.init.normal_(emb.weight, std=0.02)
         self.gpt = nn.Module()
-        self.gpt.h = nn.ModuleList(GPT2Block(c.model_dim, c.heads) for _ in range(c.layers))
+        self.gpt.h = nn.ModuleList(GPT2Block(c.model_dim, c.heads, c.dropout, c.attn_dropout)
+                                   for _ in range(c.layers))
         self.gpt.ln_f = LayerNorm(c.model_dim, eps=1e-5)
         self.final_norm = LayerNorm(c.model_dim, eps=1e-5)
         self.text_head = nn.Linear(c.model_dim, c.number_text_tokens + 1)
@@ -127,14 +150,13 @@ class UnifiedVoice(nn.Module):
         return self.gpt.h[0].attn.c_attn.weight.dtype
 
     def _stack(self, emb, cache: Optional[Cache] = None, pos: int = 0, step=None):
-        x = emb.to(self.act_dtype)
+        x = F.dropout(emb.to(self.act_dtype), self.cfg.dropout if self.training else 0.0)
         for i, block in enumerate(self.gpt.h):
             x = block(x, None if cache is None else cache[i], pos, step)
         return self.gpt.ln_f(x)
 
     def _head(self, h):
-        w = self.mel_head.weight
-        return F.linear(self.final_norm(h), w.float(), self.mel_head.bias.float())
+        return _f32_linear(self.mel_head, self.final_norm(h))
 
     def _embed_text(self, text_inputs):
         c = self.cfg
@@ -149,11 +171,11 @@ class UnifiedVoice(nn.Module):
 
     def forward(self, text_inputs, text_lengths, mel_codes, wav_lengths,
                 return_latent: bool = True):
-        """The return_latent forward (model.py:453-500): final_norm hidden
-        states of the mel segment minus its two trailing tokens (B, T, D) —
-        the diffusion conditioning signal."""
-        if not return_latent:
-            raise NotImplementedError("the training losses are not ported")
+        """return_latent: final_norm hidden states of the mel segment minus
+        its two trailing tokens (B, T, D), the diffusion conditioning signal
+        (model.py:453-500). Else the training losses (model.py:453-511):
+        (loss_text, loss_mel, mel_logits), each loss the mean cross-entropy
+        over every position of its stream, stop tokens included."""
         c = self.cfg
         mel_lengths = wav_lengths // self.mel_length_compression
         pos = torch.arange(mel_codes.shape[1], device=mel_codes.device)[None, :]
@@ -163,7 +185,14 @@ class UnifiedVoice(nn.Module):
         text_emb = self._embed_text(text_inputs)
         h = self._stack(torch.cat([text_emb, self._embed_mel(mel_in)], dim=1))
         h = self.final_norm(h)
-        return h[:, text_emb.shape[1]:][:, :-2]
+        h_text, h_mel = h[:, :text_emb.shape[1]], h[:, text_emb.shape[1]:]
+        if return_latent:
+            return h_mel[:, :-2]
+        text_targets = F.pad(text_inputs, (0, 2), value=c.stop_text_token)
+        mel_targets = F.pad(mel_codes, (0, 1), value=c.stop_mel_token)
+        mel_logits = _f32_linear(self.mel_head, h_mel)
+        return (_ce(_f32_linear(self.text_head, h_text), text_targets),
+                _ce(mel_logits, mel_targets), mel_logits)
 
     def prefill(self, text_inputs, prompt_codes, max_len: int):
         """Run the prompt once and fill per-layer caches (B, H, max_len, dk).
@@ -189,6 +218,18 @@ class UnifiedVoice(nn.Module):
         return self._head(self._stack(emb, cache, position, step)[:, 0])
 
 
+def _f32_linear(head: nn.Linear, h):
+    """A head in f32, autocast or not (the JAX heads have no compute dtype)."""
+    with torch.autocast(h.device.type, enabled=False):
+        return F.linear(h.float(), head.weight.float(), head.bias.float())
+
+
+def _ce(logits, targets):
+    """Mean cross-entropy over every position (ttts_tpu gpt._ce)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None]).mean()
+
+
 def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
                      max_generate_length: int, sampling: SamplingParams,
                      gumbel: torch.Tensor) -> torch.Tensor:
@@ -210,7 +251,8 @@ def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
                         device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     rows = torch.arange(b, device=dev)
-    step = decode_attention.pick(model.act_dtype, c.model_dim // c.heads)  # once per call
+    recorded = [p for p in model.parameters() if p.requires_grad] if torch.is_grad_enabled() else []
+    step = decode_attention.pick(model.act_dtype, c.model_dim // c.heads, *recorded)  # once a call
     for i in range(max_generate_length):
         tok = sample_logits(logits, counts, sampling, gumbel[i])
         tok = torch.where(done, c.stop_mel_token, tok)

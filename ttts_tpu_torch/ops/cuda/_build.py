@@ -133,3 +133,21 @@ def launch(name: str, *args) -> None:
         msg = lib.ttts_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these inputs: grad mode is on
+    and a floating input requires grad. The kernels have no backward, so
+    each dispatch takes its plain (differentiable) version then, as the JAX
+    package trains on its XLA paths, and each raw wrapper refuses such
+    inputs rather than return a tensor cut from the graph."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.is_floating_point() and t.requires_grad
+        for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would record `name`'s launch on these inputs."""
+    if records_grad(*tensors):
+        raise ValueError(f"{name}: the kernel has no backward; an input requires grad "
+                         "under grad mode (the dispatch takes the plain version then)")

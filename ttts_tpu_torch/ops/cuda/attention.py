@@ -26,16 +26,19 @@ MODES = {(True, False): "bias", (False, False): "nobias", (False, True): "causal
 
 
 def toeplitz_bias(strip: torch.Tensor, t: int) -> torch.Tensor:
-    """(H, 2T-1) strip → (H, T, T) bias."""
-    r = torch.arange(t, device=strip.device)
-    return strip[:, r[None, :] - r[:, None] + t - 1]
+    """(H, 2T-1) strip → (H, T, T) bias: row i is strip[:, T-1-i : 2T-1-i],
+    a window of the strip (unfold, whose backward sums in a fixed order, so
+    that a training step through the plain version repeats bit for bit)."""
+    return strip.unfold(1, t, 1).flip(1)
 
 
 def flash_attention_plain(q, k, v, strip=None, causal: bool = False):
     """q, k, v: (B, T, H, D); strip: (H, 2T-1) or None. f32 scores and
     softmax, the scale 1/sqrt(D) folded into q in q's dtype, keys j > i
     filled with the f32 minimum when causal, as the TPU kernel does →
-    (B, T, H, D)."""
+    (B, T, H, D). Under autocast the two products take autocast's dtype
+    (the scores' minimum then is that dtype's), as the JAX package's bf16
+    training einsums do."""
     t, d = q.shape[1], q.shape[3]
     qs = (q.float() * (1.0 / math.sqrt(d))).to(q.dtype).float()
     s = torch.einsum("bthd,bshd->bhts", qs, k.float())
@@ -43,7 +46,7 @@ def flash_attention_plain(q, k, v, strip=None, causal: bool = False):
         s = s + toeplitz_bias(strip.float(), t)[None]
     if causal:
         keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~keep, torch.finfo(torch.float32).min)
+        s = s.masked_fill(~keep, torch.finfo(s.dtype).min)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhts,bshd->bthd", p, v.float()).to(q.dtype)
 
@@ -81,17 +84,21 @@ def kernel_fits(q, k, v) -> bool:
 
 def attend(q, k, v, strip=None, causal: bool = False) -> torch.Tensor:
     """The model call sites' attention: the kernel where its domain holds
-    (kernel_fits), else flash_attention_plain."""
-    fn = flash_attention if kernel_fits(q, k, v) else flash_attention_plain
+    (kernel_fits) and autograd would not record the call
+    (_build.records_grad), else flash_attention_plain."""
+    use = kernel_fits(q, k, v) and not _build.records_grad(q, k, v, strip)
+    fn = flash_attention if use else flash_attention_plain
     return fn(q, k, v, strip, causal)
 
 
 def flash_attention(q, k, v, strip=None, causal: bool = False) -> torch.Tensor:
     """See flash_attention_plain. On CUDA the inputs are in the kernel's
     domain (kernel_fits): bf16 q, k, v with D in {32, 64}, each possibly a
-    strided view of a fused qkv tensor that `_strides` accepts."""
+    strided view of a fused qkv tensor that `_strides` accepts, and none
+    requires grad under grad mode (the kernel has no backward)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, strip, causal)
+    _build.refuse_grad("flash_attention", q, k, v, strip)
     tensors = (k, v) if strip is None else (k, v, strip)
     if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
         raise ValueError("flash_attention: all tensors must be on one CUDA device")

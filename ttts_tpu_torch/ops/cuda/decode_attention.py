@@ -42,19 +42,25 @@ def kernel_fits(dtype: torch.dtype, dk: int) -> bool:
     return dtype == torch.bfloat16 and dk == DK
 
 
-def pick(dtype: torch.dtype, dk: int):
+def pick(dtype: torch.dtype, dk: int, *grad_inputs):
     """The decode-attention function for q and caches of this dtype and head
-    width: decode_attention where kernel_fits holds, else its plain version.
-    A decode loop picks once and calls the result every step."""
-    return decode_attention if kernel_fits(dtype, dk) else decode_attention_plain
+    width: decode_attention where kernel_fits holds and autograd would not
+    record a call on `grad_inputs` (the tensors the step differentiates
+    through, if any: q, or the model's parameters; _build.records_grad),
+    else its plain version. A decode loop picks once and calls the result
+    every step."""
+    use = kernel_fits(dtype, dk) and not _build.records_grad(*grad_inputs)
+    return decode_attention if use else decode_attention_plain
 
 
 def decode_attention(q, uk, uv, k_cache, v_cache, pos: int) -> torch.Tensor:
     """One decode-attention step; see decode_attention_plain for shapes. On
-    CUDA the dtype and dk are in the kernel's domain (kernel_fits)."""
+    CUDA the dtype and dk are in the kernel's domain (kernel_fits) and no
+    input requires grad under grad mode (the kernel has no backward)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, uk, uv, k_cache, v_cache, pos)
     tensors = (q, uk, uv, k_cache, v_cache)
+    _build.refuse_grad("decode_attention", *tensors)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError("decode_attention: all tensors must be on one CUDA device")
     if any(t.dtype != torch.bfloat16 for t in tensors):

@@ -80,10 +80,11 @@ def resblock_fits(x, g1, b1, w1, bd1, a2, b2, w3, bc3, groups: int = 32) -> bool
 
 def scale_shift_resblock(x, g1, b1, w1, bd1, a2, b2, w3, bc3, groups: int = 32):
     """The model call site's resblock: the kernel where its domain holds
-    (resblock_fits), else fused_scale_shift_resblock_plain."""
+    (resblock_fits) and autograd would not record the call
+    (_build.records_grad), else fused_scale_shift_resblock_plain."""
     args = (x, g1, b1, w1, bd1, a2, b2, w3, bc3)
-    fn = (fused_scale_shift_resblock if resblock_fits(*args, groups=groups)
-          else fused_scale_shift_resblock_plain)
+    use = resblock_fits(*args, groups=groups) and not _build.records_grad(*args)
+    fn = fused_scale_shift_resblock if use else fused_scale_shift_resblock_plain
     return fn(*args, groups=groups)
 
 
@@ -91,11 +92,13 @@ def fused_scale_shift_resblock(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
                                groups: int = 32, eps: float = 1e-5):
     """See fused_scale_shift_resblock_plain. On CUDA the shapes are in the
     kernel's domain (resblock_fits): bf16 x, w1 and w3, C a multiple of 128
-    (at most 1024) and C / groups = 16."""
+    (at most 1024) and C / groups = 16, and no input requires grad under
+    grad mode (the kernel has no backward)."""
     if x.device.type == "cpu":
         return fused_scale_shift_resblock_plain(x, g1, b1, w1, bd1, a2, b2, w3, bc3,
                                                 groups, eps)
     args = (g1, b1, w1, bd1, a2, b2, w3, bc3)
+    _build.refuse_grad("fused_scale_shift_resblock", x, *args)
     if x.device.type != "cuda" or any(a.device != x.device for a in args):
         raise ValueError("fused_scale_shift_resblock: all tensors must be on one CUDA device")
     why = _resblock_unsupported(x, w1, a2, b2, w3, groups)
@@ -156,8 +159,10 @@ def gn_qkv_fits(x, g, b, w, bias, groups: int = 32) -> bool:
 
 def gn_qkv(x, g, b, w, bias, groups: int = 32):
     """The model call site's GroupNorm → qkv: the kernel where its domain
-    holds (gn_qkv_fits), else fused_gn_qkv_plain."""
-    fn = fused_gn_qkv if gn_qkv_fits(x, g, b, w, bias, groups) else fused_gn_qkv_plain
+    holds (gn_qkv_fits) and autograd would not record the call
+    (_build.records_grad), else fused_gn_qkv_plain."""
+    use = gn_qkv_fits(x, g, b, w, bias, groups) and not _build.records_grad(x, g, b, w, bias)
+    fn = fused_gn_qkv if use else fused_gn_qkv_plain
     return fn(x, g, b, w, bias, groups=groups)
 
 
@@ -165,9 +170,11 @@ def fused_gn_qkv(x, g, b, w, bias, groups: int = 32, eps: float = 1e-5):
     """See fused_gn_qkv_plain (w is (in, out)). On CUDA the shapes are in the
     kernel's domain (gn_qkv_fits): bf16 x and w, C a multiple of 64 (at most
     1024), C / groups a multiple of 8, K a multiple of 128 and groups at most
-    64."""
+    64, and no input requires grad under grad mode (the kernel has no
+    backward)."""
     if x.device.type == "cpu":
         return fused_gn_qkv_plain(x, g, b, w, bias, groups, eps)
+    _build.refuse_grad("fused_gn_qkv", x, g, b, w, bias)
     if x.device.type != "cuda" or any(a.device != x.device for a in (g, b, w, bias)):
         raise ValueError("fused_gn_qkv: all tensors must be on one CUDA device")
     why = _gn_qkv_unsupported(x, w, bias, groups)

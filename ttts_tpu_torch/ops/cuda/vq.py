@@ -46,15 +46,20 @@ def kernel_fits(x: torch.Tensor, codebook: torch.Tensor) -> bool:
 
 def nearest(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """The model call site's search: the kernel where its domain holds
-    (kernel_fits), else vq_nearest_plain."""
-    return (vq_nearest if kernel_fits(x, codebook) else vq_nearest_plain)(x, codebook)
+    (kernel_fits) and autograd would not record the call
+    (_build.records_grad; the codes are integral, but the rule is every
+    dispatch's), else vq_nearest_plain."""
+    use = kernel_fits(x, codebook) and not _build.records_grad(x, codebook)
+    return (vq_nearest if use else vq_nearest_plain)(x, codebook)
 
 
 def vq_nearest(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """x (N, D) f32, codebook (bins, D) f32 → (N,) int32 nearest-code index.
-    On CUDA the shapes are in the kernel's domain (kernel_fits)."""
+    On CUDA the shapes are in the kernel's domain (kernel_fits) and neither
+    input requires grad under grad mode."""
     if x.device.type == "cpu":
         return vq_nearest_plain(x, codebook)
+    _build.refuse_grad("vq_nearest", x, codebook)
     if x.device.type != "cuda" or codebook.device != x.device:
         raise ValueError(f"vq_nearest: x on {x.device}, codebook on {codebook.device}")
     why = _unsupported(x, codebook)

@@ -11,6 +11,12 @@ needed here).
 Layouts: flax Conv kernels (k, in, out) → torch (out, in, k); flax Dense
 (in, out) → torch Linear (out, in); GPT-2 Conv1D weights stay (in, out);
 flax WeightNorm (kernel v, scale g) → (weight_v, weight_g).
+
+The maps only relayout, so they carry gradients as they carry weights.
+`unified_voice_variables` and `aa_diffusion_variables` go the other way,
+from this package's state dicts (numpy arrays or tensors) to the JAX
+variable trees (VARIABLES_FNS; train/checkpoints.export_release writes
+them in the JAX package's release format).
 """
 
 from __future__ import annotations
@@ -567,3 +573,116 @@ STATE_DICT_FNS = {
     "clvp": clvp_state_dict,
     "classifier": classifier_state_dict,
 }
+
+
+# ----------------------------------------------- state dict → JAX variables
+
+
+def _np(v) -> np.ndarray:
+    if hasattr(v, "detach"):
+        v = v.detach().cpu().float().numpy()
+    return np.array(v, dtype=np.float32)
+
+
+def _inv_norm(sd, p: str) -> dict:
+    return {"scale": _np(sd[p + ".weight"]), "bias": _np(sd[p + ".bias"])}
+
+
+def _inv_dense(sd, p: str) -> dict:
+    return {"kernel": _np(sd[p + ".weight"]).T, "bias": _np(sd[p + ".bias"])}
+
+
+def _inv_dense_as_conv1x1(sd, p: str) -> dict:
+    return {"kernel": _np(sd[p + ".weight"])[:, :, 0].T, "bias": _np(sd[p + ".bias"])}
+
+
+def _inv_conv_flax(sd, p: str) -> dict:
+    return {"kernel": _np(sd[p + ".weight"]).transpose(2, 1, 0), "bias": _np(sd[p + ".bias"])}
+
+
+def _indices(sd, prefix: str) -> range:
+    """range(n) for the n sub-modules `prefix{i}.` of the state dict."""
+    idx = {int(k[len(prefix):].split(".")[0]) for k in sd if k.startswith(prefix)}
+    return range(len(idx))
+
+
+def unified_voice_variables(sd) -> dict:
+    """ttts_tpu_torch UnifiedVoice state dict → JAX UnifiedVoice variables;
+    the inverse of unified_voice_state_dict."""
+    stack = {"ln_f": _inv_norm(sd, "gpt.ln_f")}
+    for i in _indices(sd, "gpt.h."):
+        pre = f"gpt.h.{i}"
+        blk = {"LayerNorm_0": _inv_norm(sd, pre + ".ln_1"),
+               "LayerNorm_1": _inv_norm(sd, pre + ".ln_2")}
+        for name, dense in (("attn.c_attn", "Dense_0"), ("attn.c_proj", "Dense_1"),
+                            ("mlp.c_fc", "Dense_2"), ("mlp.c_proj", "Dense_3")):
+            blk[dense] = {"kernel": _np(sd[f"{pre}.{name}.weight"]),
+                          "bias": _np(sd[f"{pre}.{name}.bias"])}
+        stack[f"GPT2Block_{i}"] = blk
+    return {"params": {
+        "text_embedding": {"embedding": _np(sd["text_embedding.weight"])},
+        "mel_embedding": {"embedding": _np(sd["mel_embedding.weight"])},
+        "text_pos_embedding": _np(sd["text_pos_embedding.emb.weight"]),
+        "mel_pos_embedding": _np(sd["mel_pos_embedding.emb.weight"]),
+        "final_norm": _inv_norm(sd, "final_norm"),
+        "text_head": _inv_dense(sd, "text_head"),
+        "mel_head": _inv_dense(sd, "mel_head"),
+        "gpt": stack}}
+
+
+def _inv_attn_block(sd, p: str) -> dict:
+    tree = {"norm": {"GroupNorm_0": _inv_norm(sd, p + ".norm")},
+            "qkv": _inv_dense_as_conv1x1(sd, p + ".qkv"),
+            "proj": _inv_dense_as_conv1x1(sd, p + ".proj_out")}
+    rel = p + ".relative_pos_embeddings.relative_attention_bias.weight"
+    if rel in sd:
+        tree["relpos"] = {"table": {"embedding": _np(sd[rel])}}
+    return tree
+
+
+def _inv_ss_resblock(sd, p: str) -> dict:
+    return {"GroupNorm32_0": {"GroupNorm_0": _inv_norm(sd, p + ".in_layers.0")},
+            "Dense_0": _inv_dense_as_conv1x1(sd, p + ".in_layers.2"),
+            "Dense_1": _inv_dense(sd, p + ".emb_layers.1"),
+            "GroupNorm32_1": {"GroupNorm_0": _inv_norm(sd, p + ".out_layers.0")},
+            "Conv_0": _inv_conv_flax(sd, p + ".out_layers.3")}
+
+
+def _inv_diffusion_layer(sd, p: str) -> dict:
+    return {"resblk": _inv_ss_resblock(sd, p + ".resblk"),
+            "attn": _inv_attn_block(sd, p + ".attn")}
+
+
+def aa_diffusion_variables(sd) -> dict:
+    """ttts_tpu_torch AA_diffusion state dict → JAX AA_diffusion variables;
+    the inverse of aa_diffusion_state_dict."""
+    p = {"inp_block": _inv_conv_flax(sd, "inp_block"),
+         "time_embed_0": _inv_dense(sd, "time_embed.0"),
+         "time_embed_1": _inv_dense(sd, "time_embed.2"),
+         "unconditioned_embedding": _np(sd["unconditioned_embedding"]).transpose(0, 2, 1),
+         "integrating_conv": _inv_dense_as_conv1x1(sd, "integrating_conv"),
+         "out_norm": {"GroupNorm_0": _inv_norm(sd, "out.0")},
+         "out_conv": _inv_conv_flax(sd, "out.2"),
+         "code_norm": {"GroupNorm_0": _inv_norm(sd, "code_norm")},
+         "latent_conditioner_0": _inv_conv_flax(sd, "latent_conditioner.0"),
+         "refer_conv": _inv_conv_flax(sd, "refer_enc.0")}
+    for i in range(3):
+        p[f"conditioning_timestep_integrator_{i}"] = _inv_diffusion_layer(
+            sd, f"conditioning_timestep_integrator.{i}")
+        p[f"latent_conditioner_{i + 1}"] = _inv_attn_block(sd, f"latent_conditioner.{i + 1}")
+        p[f"refer_attn_{i}"] = _inv_attn_block(sd, f"refer_enc.{i + 1}")
+    for i in _indices(sd, "layers."):
+        pre = f"layers.{i}"
+        p[f"layers_{i}"] = (_inv_diffusion_layer(sd, pre) if pre + ".attn.qkv.weight" in sd
+                            else _inv_ss_resblock(sd, pre))
+    pool = {"latents": _np(sd["refer_enc.4.latents"]),
+            "Conv_0": _inv_conv_flax(sd, "refer_enc.4.enc.0")}
+    for i, name in enumerate(("conv_q", "conv_k", "conv_v", "conv_o")):
+        pool[f"Dense_{i}"] = _inv_dense_as_conv1x1(sd, f"refer_enc.4.cross_attention.{name}")
+    for i in range(len(_indices(sd, "refer_enc.4.enc.")) - 1):
+        pool[f"AttentionBlock_{i}"] = _inv_attn_block(sd, f"refer_enc.4.enc.{i + 1}")
+    p["refer_pool"] = pool
+    return {"params": p}
+
+
+VARIABLES_FNS = {"gpt": unified_voice_variables, "diffusion": aa_diffusion_variables}

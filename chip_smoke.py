@@ -86,7 +86,21 @@ Phases, one printed line each, any failure raising (non-zero exit):
       cosines with the trunk's attention and resblock weights named); each
       raw kernel wrapper refusing an input that requires grad; both trained
       models exported (export_release) and served by
-      TextToSpeech.from_checkpoints.
+      TextToSpeech.from_checkpoints;
+  (l) codec GAN training, at default_config() widths (codec 192 channels,
+      1024 codes, the full MultiPeriodDiscriminator, 20480-sample slices,
+      f32 with TF32 off, the device warp and EQ on) on a seeded dataset of
+      32 synthetic voices of 1-4 s at 32 kHz written with save_wav: the
+      vqvae trainer for 8 steps of batch 8 with checkpoints at 4 and 8, and
+      a resume from 4; every loss finite; per step the quantizer's searches
+      and the VQ kernel's launches (2 on the first: the k-means init's
+      residual pass, then the search; 1 after), its plain version never
+      called and no other kernel; step ms, peak memory and the busy share
+      of 3 steady steps; the VQ kernel against its plain version at the
+      largest shape the steps gave it (a row of its own in the kernel
+      table) beside cuBLAS's x @ cb.T; one step on the card against the f32
+      CPU step at the same weights (the trained codebook), 2 rows and draws,
+      dropout off (GAN_TOL: codes, losses, G and D grad norms and cosines).
 The last two lines are the kernel table as JSON and then
 {"ok": true, "device": {...}}. Imports no JAX; needs a CUDA card.
 """
@@ -1904,6 +1918,338 @@ def phase_training(card: str, rows: list) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------- (l)
+
+# Card (f32, TF32 off) against the port's f32 CPU step at the same full
+# width, weights (the trained codec with its codebook initialised), 2 rows
+# and injected draws, dropout off: the codes' agreement, each loss's
+# relative error, and for G and D the global grad norm's relative error and
+# the least per-tensor cosine (tensors below NOISE of the global norm are
+# listed, not held). Three runs on an H100 80GB HBM3 at 700 W (PERF.md)
+# read: codes 40 of 40 equal; losses <= 8.2e-5 (the commit loss; the others
+# <= 2.2e-6); grad norms G <= 6.6e-7, D <= 3.4e-6; least cosine G 0.99994,
+# D 1.00000. The limits are a few times those; one code may split a
+# near-tie (the kernel and the plain version order their sums apart).
+GAN_TOL = {"codes_agree": 39 / 40, "loss_rel": 5e-4, "grad_norm_rel": 2e-5, "min_cos": 0.9998}
+GAN_STEPS, GAN_SAVE, GAN_BATCH = 8, 4, 8
+GAN_TEXTS = (TEXT, TEXT2, "ta1 shuo1 ming2 tian1 hui4 xia4 yu3")
+
+
+def _gan_data(root, rows: int = 32, seed: int = 5) -> str:
+    """A seeded manifest of `rows` synthetic voices of 1-4 s at 32 kHz
+    (written with the port's save_wav) and pinyin texts."""
+    from ttts_tpu_torch.data.audio import save_wav
+    from ttts_tpu_torch.data.manifest import write_manifest
+
+    rng = np.random.default_rng(seed)
+    table = []
+    for i in range(rows):
+        path = str(root / f"voice{i:03d}.wav")
+        save_wav(path, synthetic_voice(float(rng.uniform(1.0, 4.0)), 32000, seed + i), 32000)
+        table.append({"text": GAN_TEXTS[i % len(GAN_TEXTS)], "path": path})
+    write_manifest(root / "wavs.jsonl", table)
+    return str(root / "wavs.jsonl")
+
+
+class _VqWatch:
+    """Within the block, per step of `trainer` (a wrapper of its step): the
+    calls of the quantizer's search dispatch (vq.nearest, whose (N, D) input
+    shapes are kept), the kernel's launches (its wrapper's count) and the
+    calls of its plain version (spies on the module's names, which the
+    dispatch looks up at each call)."""
+
+    def __init__(self, trainer):
+        self.trainer, self.per_step, self.shapes = trainer, [], set()
+
+    def __enter__(self):
+        from ttts_tpu_torch.ops.cuda import vq
+
+        self.vq, self.calls, self.plain = vq, 0, 0
+        self.real = (vq.nearest, vq.vq_nearest_plain)
+        nearest, plain = self.real
+
+        def spy_nearest(x, cb):
+            self.calls += 1
+            self.shapes.add(tuple(x.shape))
+            return nearest(x, cb)
+
+        def spy_plain(x, cb):
+            self.plain += 1
+            return plain(x, cb)
+
+        vq.nearest, vq.vq_nearest_plain = spy_nearest, spy_plain
+        step_fn = self.trainer.step_fn
+
+        def counted(state, batch, key):
+            before = (self.calls, vq.vq_nearest.launches, self.plain)
+            out = step_fn(state, batch, key)
+            self.per_step.append((self.calls - before[0], vq.vq_nearest.launches - before[1],
+                                  self.plain - before[2]))
+            return out
+
+        self.trainer.step_fn = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.vq.nearest, self.vq.vq_nearest_plain = self.real
+
+
+def _run_gan(make, what: str) -> dict:
+    """Train the GAN trainer `make()` builds to its end on the card, each
+    step ending in a synchronise; → its trainer, launches, per-step VQ
+    readings, median step ms over the steps after the first and peak
+    memory."""
+    trainer = make()
+    start = trainer.step
+    step_fn = trainer.step_fn
+
+    def synced(state, batch, key):
+        metrics = step_fn(state, batch, key)
+        torch.cuda.synchronize()
+        return metrics
+
+    trainer.step_fn = synced
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with _VqWatch(trainer) as watch:
+        trainer.train()
+    launches = counts()
+    hist = list(trainer.history)
+    for h in hist:
+        bad = [k for k, v in h.items() if k not in ("step", "seconds")
+               and not math.isfinite(float(v))]
+        if bad:
+            raise RuntimeError(f"(l) {what}: step {h['step']} non-finite {bad}")
+    steady = hist[1:] if len(hist) > 1 else hist
+    secs = [h["seconds"] for h in steady]
+    ms, spread = float(np.median(secs)) * 1e3, (min(secs) * 1e3, max(secs) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"(l) {what}: steps {start + 1}-{trainer.step}, loss_gen_all "
+        f"{float(hist[0]['loss_gen_all']):.3f} -> {float(hist[-1]['loss_gen_all']):.3f}, "
+        f"loss_disc {float(hist[0]['loss_disc']):.3f} -> {float(hist[-1]['loss_disc']):.3f}, "
+        f"all finite | first step {hist[0]['seconds'] * 1e3:.1f} ms, {len(steady)} later "
+        f"steps: median {ms:.1f} ms ({spread[0]:.1f}-{spread[1]:.1f}) | peak memory "
+        f"{peak:.2f} GiB | per step (searches, VQ launches, plain calls): {watch.per_step}")
+    return {"trainer": trainer, "launches": launches, "per_step": watch.per_step,
+            "shapes": watch.shapes, "ms": ms, "spread": spread, "steps": len(hist),
+            "peak": peak}
+
+
+def _to(tree, device):
+    if torch.is_tensor(tree):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree
+
+
+def _compare_gan(cfg, g_sd, d_sd, batch) -> None:
+    """One GAN step, EQ and device warp on, on the card and the CPU (f32
+    both) at the same weights, codebook and draws, dropout off (the two
+    devices' generators draw other masks); the gradients each optimizer
+    receives are recorded."""
+    from ttts_tpu_torch.models.discriminator import MultiPeriodDiscriminator
+    from ttts_tpu_torch.models.vqvae import SynthesizerTrn
+    from ttts_tpu_torch.ops.cuda import vq
+    from ttts_tpu_torch.train import mains
+    from ttts_tpu_torch.train.state import GanState, TrainState, make_gan_adam
+    from ttts_tpu_torch.train.steps import vqvae_draws, vqvae_train_step
+
+    a, t = cfg.audio, cfg.train
+    aug = mains.make_vqvae_augment_cfg(cfg)
+    seg = t.segment_size // a.hop_length
+    out = {}
+    for dev in ("cuda", "cpu"):
+        gen = SynthesizerTrn(cfg.vqvae, a.filter_length // 2 + 1, seg, for_training=True)
+        gen.load_state_dict(g_sd)
+        for m in gen.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        disc = MultiPeriodDiscriminator()
+        disc.load_state_dict(d_sd)
+        opt = lambda ps: make_gan_adam(ps, t.lr, decay=t.lr_decay)  # noqa: E731
+        state = GanState(TrainState.create(gen.to(dev), opt), TrainState.create(disc.to(dev), opt))
+        grads = {}
+        for side in ("g", "d"):
+            st = getattr(state, side)
+
+            def update(gs, norm=None, _side=side, _update=st.opt.update):
+                grads[_side] = [None if x is None else x.detach().double().cpu() for x in gs]
+                return _update(gs, norm)
+
+            st.opt.update = update
+        b = {k: v.to(dev) for k, v in batch.items()}
+        if dev == "cuda":
+            draws = vqvae_draws(7, {k: v.cpu() for k, v in b.items()}, gen, a.hop_length, aug,
+                                device_warp=True)
+        codes = []
+        real = vq.nearest
+
+        def kept(x, cb):
+            codes.append(real(x, cb))
+            return codes[-1]
+
+        vq.nearest = kept
+        try:
+            reset_counts()
+            metrics = vqvae_train_step(state, b, 7, a, t.c_mel, t.c_kl, aug, True,
+                                       draws=_to(draws, dev))
+            launched = count("vq_nearest")
+        finally:
+            vq.nearest = real
+        out[dev] = (metrics, grads, torch.cat([c.cpu().long() for c in codes]), launched,
+                    [n for n, _ in gen.named_parameters()],
+                    [n for n, _ in disc.named_parameters()])
+    (mc, gc, cc, lc, gnames, dnames), (mp, gp, cp, lp, _, _) = out["cuda"], out["cpu"]
+    agree = float((cc == cp).float().mean())
+    rels = {k: abs(float(mc[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-12) for k in mp}
+    readings = {side: _grad_reading(names, gc[side], gp[side])
+                for side, names in (("g", gnames), ("d", dnames))}
+    log(f"(l) GAN step, card vs f32 CPU ({batch['wav'].shape[0]} rows of "
+        f"{batch['wav'].shape[1] // a.hop_length} frames, EQ + device warp, codebook inited): "
+        f"codes agree {agree:.4f} of {cc.numel()} (tol >= {GAN_TOL['codes_agree']}; VQ "
+        f"launches {lc} on the card, {lp} on the CPU) | loss rel errors "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()) + f" (tol {GAN_TOL['loss_rel']})")
+    bad = agree < GAN_TOL["codes_agree"] or lc != 1 or lp != 0 or any(
+        v > GAN_TOL["loss_rel"] for v in rels.values())
+    for side, r in readings.items():
+        nrel = abs(r["norm_card"] - r["norm_cpu"]) / r["norm_cpu"]
+        worst = min(r["cos"], key=r["cos"].get)
+        log(f"(l)   {side.upper()} grads: global norm {r['norm_card']:.5f} vs "
+            f"{r['norm_cpu']:.5f}, "
+            f"rel {nrel:.3e} (tol {GAN_TOL['grad_norm_rel']}) | least cosine of "
+            f"{len(r['cos'])} tensors {r['cos'][worst]:.6f} ({worst}; tol {GAN_TOL['min_cos']}) "
+            f"| cut {r['cut'] or 'none'} | below {NOISE} of the norm, not held: "
+            f"{len(r['noise'])} tensors")
+        bad = bad or bool(r["cut"]) or nrel > GAN_TOL["grad_norm_rel"] or (
+            r["cos"][worst] < GAN_TOL["min_cos"])
+    if bad:
+        raise RuntimeError("(l) the card's GAN step disagrees with the CPU's")
+
+
+def _check_gan_vq(rows, shapes, card: str) -> None:
+    """The VQ kernel against its plain version at the largest shape the GAN
+    step gave it (N = B * T/2 rows x 1024 codes x 192), read as phase (c)
+    reads VQ, timed beside cuBLAS's x @ cb.T alone (a floor, not the same
+    function)."""
+    from ttts_tpu_torch.ops.cuda.vq import vq_nearest_plain
+
+    n, d = max(shapes)
+    bins = 1024
+    fn = wrapper("vq_nearest")
+    g = torch.Generator("cuda").manual_seed(13)
+    x, cb = _vq_inputs(g, n, bins)
+    m = _vq_reading(x, cb, fn(x, cb))
+    torch.cuda.synchronize()
+    log(f"(l) VQ kernel shapes of the GAN steps (N, D): {sorted(shapes)}")
+    _timed(rows, "vq_nearest_gan_train",
+           f"N={n} bins={bins} D={d} f32 (GAN train step): mismatches {m['mism']} (near-ties "
+           f"{m['near']}; tolerance: a mismatch only on a <=1e-5 relative distance tie, the exact "
+           "tie to index 3), distance gap", m, "wrong", 0,
+           partial(fn, x, cb), partial(vq_nearest_plain, x, cb), None,
+           (2 * n * bins * d, (n * d + bins * d + n) * 4, PEAK_F32))
+    row = rows[-1]
+    log(f"(l) device time at that shape (torch.profiler): kernel {device_us(row['run'])} | "
+        f"plain {device_us(row['run_plain'])} | floor, x @ cb.T alone (cuBLAS f32, TF32 off) "
+        f"{device_us(lambda: x @ cb.T)} | card {card}")
+
+
+def _gan_augment_share(cfg, trainer, batch, step_launches: float, card: str) -> None:
+    """The device warp's and the EQ's part of a steady GAN step: device ms
+    and launches of each on the step's batch, with the step's draws."""
+    from ttts_tpu_torch.data.augment import apply_peq, warp_batch_device
+    from ttts_tpu_torch.train import mains
+    from ttts_tpu_torch.train.steps import vqvae_draws
+
+    aug = mains.make_vqvae_augment_cfg(cfg)
+    b = trainer._put(batch)
+    gen = trainer.state.g.model
+    d = vqvae_draws(2, b, gen, cfg.audio.hop_length, aug, True)
+    wav = b["wav"][..., 0]
+    parts = {"device warp": lambda: warp_batch_device(wav, d["warp"], aug),
+             "EQ": lambda: apply_peq(wav, d["peq"]["quality_power"], d["peq"]["gain"], aug)}
+    for fn in parts.values():
+        fn()  # warm up
+    readings = []
+    for name, fn in parts.items():
+        ms, n, _ = _device_busy(fn)
+        readings.append(f"{name} {ms:.2f} ms busy in {n} launches "
+                        f"({n / step_launches:.3f} of the step's)")
+    log(f"(l) augmentation of one step's batch of {wav.shape[0]}: {'; '.join(readings)} "
+        f"(torch.profiler) | card {card}")
+
+
+def phase_gan(card: str, rows: list) -> dict:
+    """(l) Codec GAN training at default_config() widths on the card:
+    GAN_STEPS steps of batch GAN_BATCH with checkpoints every GAN_SAVE and a
+    resume, the VQ kernel launched by every step (2 on the first: the
+    k-means init's residual pass, then the search; 1 after) and its plain
+    version never; step time, memory, busy share; the VQ kernel at the
+    step's largest shape (a row of the kernel table); the card's step
+    against the f32 CPU step."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from ttts_tpu_torch.config import default_config
+    from ttts_tpu_torch.data.datasets import VQGANDataset
+    from ttts_tpu_torch.train import mains
+
+    t_phase = time.perf_counter()
+    base = default_config()
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, train_steps=GAN_STEPS, save_freq=GAN_SAVE, batch_size=GAN_BATCH))
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ttts_gan_"))
+    try:
+        manifest = _gan_data(root)
+        first = _run_gan(lambda: mains.vqvae_trainer(cfg, manifest, str(root / "gan"), "cuda"),
+                         "codec GAN training")
+        ckpts = first["trainer"].ckpt.all_steps()
+        if ckpts[-2:] != [GAN_SAVE, GAN_STEPS]:
+            raise RuntimeError(f"(l) GAN checkpoints {ckpts}")
+        shutil.copytree(root / "gan", root / "gan_resume")
+        (root / "gan_resume" / "ckpt" / f"step_{GAN_STEPS:08d}.pt").unlink()
+        again = _run_gan(lambda: mains.vqvae_trainer(cfg, manifest, str(root / "gan_resume"),
+                                                     "cuda"),
+                         f"codec GAN resumed from step {GAN_SAVE}")
+        if again["steps"] != GAN_STEPS - GAN_SAVE or again["trainer"].step != GAN_STEPS:
+            raise RuntimeError("(l) the GAN resume did not continue from its checkpoint")
+        want = [(2, 2, 0)] + [(1, 1, 0)] * (GAN_STEPS - 1)
+        if first["per_step"] != want or again["per_step"] != want[GAN_SAVE:]:
+            raise RuntimeError(f"(l) VQ per step {first['per_step']} / {again['per_step']}, "
+                               f"expected {want}")
+        others = {n: c for n, c in first["launches"].items() if n != "vq_nearest" and c}
+        if others or first["launches"]["vq_nearest"] != GAN_STEPS + 1:
+            raise RuntimeError(f"(l) GAN training launched {first['launches']}")
+        log(f"(l) VQ launches: {GAN_STEPS + 1} over {GAN_STEPS} steps (2 on step 1, then 1), "
+            f"plain version 0 times, no other kernel (as expected) | card {card}")
+        _check_gan_vq(rows, first["shapes"] | again["shapes"], card)
+        ds = VQGANDataset(manifest)
+        batch = ds.collate([ds[i] for i in range(GAN_BATCH)])
+        tr = again["trainer"]
+        wall, busy, n = _training_busy(tr, batch)
+        log(f"(l) 3 steady GAN steps of batch {GAN_BATCH} ({batch['wav'].shape[1] / 32000:.2f} s "
+            f"padded clips): wall {wall:.1f} ms without the profiler, device busy {busy:.1f} ms "
+            f"in {n} launches under it: busy share {busy / wall:.3f}")
+        _gan_augment_share(cfg, tr, batch, n / 3, card)
+        pair = ds.collate([ds[0], ds[1]])
+        pair = {k: torch.as_tensor(v).long() if v.dtype.kind in "iu" else torch.as_tensor(v)
+                for k, v in pair.items()}
+        frames = 40  # 0.8 s at hop 640: the CPU's share of the phase stays small
+        pair["wav"] = pair["wav"][:, :frames * cfg.audio.hop_length]
+        pair["spec_lengths"] = pair["spec_lengths"].clamp(max=frames)
+        g_sd = {k: v.cpu() for k, v in tr.state.g.model.state_dict().items()}
+        d_sd = {k: v.cpu() for k, v in tr.state.d.model.state_dict().items()}
+        _compare_gan(cfg, g_sd, d_sd, pair)
+        log(f"(l) phase (l) {time.perf_counter() - t_phase:.1f} s | card {card}")
+        return {"launches": first["launches"]["vq_nearest"],
+                "per_step": {n: c / again["steps"] for n, c in again["launches"].items()}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1921,6 +2267,7 @@ def main() -> int:
     phase_planted()
     slice7 = phase_slice7(tts, per_fast, card)
     train = phase_training(card, rows)
+    gan = phase_gan(card, rows)
     table = []
     for name, (_, _, _, source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
@@ -1932,10 +2279,21 @@ def main() -> int:
                       "launches_unipc_fast_call": slice7[name],
                       "launches_gpt_train_step": train["gpt"][name],
                       "launches_diffusion_train_step": train["diffusion"][name],
+                      "launches_vqvae_train_step": gan["per_step"][name],
                       "max_abs_err": max(r["max_abs_err"] for r in mine),
                       "ms": last["ms"], "plain_ms": last["plain_ms"],
                       "bound_ms": last["bound_ms"], "bound_by": last["bound_by"],
                       "library_ms": last["library_ms"]})
+    # the VQ kernel at the GAN step's training shape: its own row, whose
+    # launches are the GAN run's
+    vq_row = [r for r in rows if r["name"] == "vq_nearest_gan_train"][-1]
+    _, _, _, source, replaces = KERNELS["vq_nearest"]
+    table.append({"name": "vq_nearest_gan_train", "route": "cuda", "source": source,
+                  "replaces": replaces, "launches": gan["launches"],
+                  "launches_vqvae_train_step": gan["per_step"]["vq_nearest"],
+                  "max_abs_err": vq_row["max_abs_err"], "ms": vq_row["ms"],
+                  "plain_ms": vq_row["plain_ms"], "bound_ms": vq_row["bound_ms"],
+                  "bound_by": vq_row["bound_by"], "library_ms": vq_row["library_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s; steady RTF fast {rtf['fast']:.4f}, "
         f"ultra_fast {rtf['ultra_fast']:.4f}")
     print(f"card: {card}", flush=True)

@@ -216,9 +216,8 @@ def test_coupling_flow_forward_and_reverse(codec):
 @pytest.mark.parametrize("t,u,k", [(5, 10, 16), (7, 8, 16), (6, 2, 8), (4, 2, 2)])
 def test_conv_transpose_weight_norm(t, u, k):
     """Each upsample of the generator (rates 10, 8, 2, 2 with kernels 16, 16,
-    8, 2): the JAX module (norm per output channel) against the port's
-    reference semantics (norm per input channel) on the fused weight; out
-    length (T-1)*stride - 2p + k."""
+    8, 2): the JAX module against the port's, both normalised per output
+    channel, through porting's relayout; out length (T-1)*stride - 2p + k."""
     cin, cout, p = 6, 4, (k - u) // 2
     jmod = jblocks.ConvTranspose1d(cout, k, u, torch_padding=p, weight_norm=True)
     rng = np.random.default_rng(k + u)
@@ -251,13 +250,30 @@ def test_generator(codec):
     assert rel(got, want) < TOL
 
 
+def _reference_ups(sd):
+    """The port's state dict with dec's transposed convolutions in the
+    reference's torch weight norm (per input channel), the JAX porter's
+    input: the effective weight v * g / ||v|| as v, g its per-input norm."""
+    sd = dict(sd)
+    for k in [k for k in sd if k.startswith("dec.ups.") and k.endswith(".weight_v")]:
+        p = k[:-len(".weight_v")]
+        v, g = sd[p + ".weight_v"].astype(np.float64), sd[p + ".weight_g"]
+        w = v * g / np.sqrt((v ** 2).sum(axis=(0, 2), keepdims=True))
+        sd[p + ".weight_v"] = w.astype(np.float32)
+        sd[p + ".weight_g"] = np.sqrt((w ** 2).sum(axis=(1, 2), keepdims=True)).astype(np.float32)
+    return sd
+
+
 def test_converter_round_trip(codec):
     """porting.synthesizer_trn_state_dict inverts the JAX porter for every
     part the port builds: exactly, but for dec's transposed convolutions,
-    whose effective weights kernel * g / ||kernel|| agree."""
+    which the port keeps in JAX's weight norm (per output channel): moved
+    into the reference's, their effective weights kernel * g / ||kernel||
+    agree."""
     _, variables, port = codec
     sd = porting.synthesizer_trn_state_dict(variables)
     assert set(sd) == set(port.state_dict())
+    sd = _reference_ups(sd)
     sd_enc_q = {k.replace("enc_p.", "enc_q.", 1): v for k, v in sd.items()
                 if k.startswith("enc_p.")}
     back = jporting.port_synthesizer_trn_state(

@@ -1,19 +1,25 @@
 """The port's copies of the data tools (ttts_tpu_torch.data: manifest,
-sampler, loader, the GPT and diffusion datasets) give the JAX package's
-rows, sidecars, examples, batches and sampler indices exactly, on one
-seeded manifest in tmp_path; the port's loader raises a collate error in
-the consumer."""
+sampler, loader, the GPT, diffusion and VQ-GAN datasets, wav_frames, the
+codec GAN's loader with and without the host warp) give the JAX package's
+rows, sidecars, examples, batches and sampler indices exactly, on seeded
+manifests in tmp_path; the port's loader raises a collate error in the
+consumer."""
 
+import dataclasses
 import itertools
 
 import numpy as np
 import pytest
 import torch
 
+from test_api import TINY as JTINY
+from test_torch_config import to_port
+from ttts_tpu.data import audio as jaudio
 from ttts_tpu.data import datasets as jds
 from ttts_tpu.data import manifest as jman
 from ttts_tpu.data import sampler as jsam
 from ttts_tpu.train import mains as jmains
+from ttts_tpu_torch.data import audio as taudio
 from ttts_tpu_torch.data import datasets as tds
 from ttts_tpu_torch.data import loader as tload
 from ttts_tpu_torch.data import manifest as tman
@@ -158,3 +164,66 @@ def test_epoch_loader_resumes_without_loading_finished_batches(corpus, taken):
     for a, b in zip(got, want):
         _equal(a, b)
     assert after.loaded[:16] == before.loaded[4 * taken:4 * taken + 16]
+
+
+def write_wav_corpus(d, rows: int = 12, seed: int = 0, sr: int = 32000) -> str:
+    """A manifest of `rows` synthetic voices at `sr`: 0.8-2.6 s with cuts
+    that are no whole number of hops, one of 0.5 s (under the 0.65 s
+    filter) and one missing file."""
+    rng = np.random.default_rng(seed)
+    texts = ["ni3 hao3 shi4 jie4", "jin1 tian1 tian1 qi4 hen3 hao3", "wo3 men5 qu4 gong1 yuan2"]
+    table = []
+    for i in range(rows):
+        path = d / f"v{i:02d}.wav"
+        secs = 0.5 if i == 3 else float(rng.uniform(0.8, 2.6))
+        n = int(secs * sr) + int(rng.integers(0, 640))
+        t = np.arange(n) / sr
+        f0 = rng.uniform(100, 250)
+        y = 0.4 * np.sin(2 * np.pi * f0 * t) * (1 + 0.3 * np.sin(2 * np.pi * 3 * t))
+        y = y + 0.01 * rng.standard_normal(n)
+        if i != 5:
+            taudio.save_wav(path, y.astype(np.float32), sr)
+        table.append({"text": texts[i % 3], "path": str(path)})
+    tman.write_manifest(d / "wavs.jsonl", table)
+    return str(d / "wavs.jsonl")
+
+
+@pytest.fixture(scope="module")
+def wav_corpus(tmp_path_factory):
+    return write_wav_corpus(tmp_path_factory.mktemp("wavs"))
+
+
+def test_vqgan_dataset_items_collate_and_frames(wav_corpus):
+    t, j = tds.VQGANDataset(wav_corpus), jds.VQGANDataset(wav_corpus)
+    items = [(t[i], j[i]) for i in range(len(t))]
+    assert len(items) == 12 and items[3] == (None, None) and items[5] == (None, None)
+    for a, b in items:
+        _equal(a, b)
+        if a is not None:
+            assert len(a["wav"]) % 640 == 0 and np.abs(a["wav"]).max() <= 1.0
+    for chunk in (slice(0, 4), slice(4, 12)):
+        got = t.collate([a for a, _ in items[chunk]])
+        _equal(got, j.collate([b for _, b in items[chunk]]))
+        assert got["wav"].shape[1] % (8 * 640) == 0 and got["text"].shape[1] % 16 == 0
+    assert t.collate([None]) is None
+    for r in tman.read_manifest(wav_corpus):
+        if r["path"].endswith("v05.wav"):
+            continue
+        for sr in (None, 32000, 24000):
+            assert taudio.wav_frames(r["path"], sr) == jaudio.wav_frames(r["path"], sr)
+
+
+@pytest.mark.parametrize("device_warp", [True, False])
+def test_vqvae_loader_batches(wav_corpus, device_warp):
+    """The codec GAN's loader over two epochs of batches of 4: the 0.65-54 s
+    buckets, and with the device warp off the host warp's `wav_warped`
+    from the same generator."""
+    train = dataclasses.replace(JTINY.train, batch_size=4, seed=7, aug_warp_device=device_warp)
+    jcfg = dataclasses.replace(JTINY, train=train)
+    t = tmains.make_vqvae_loader(to_port(jcfg), tds.VQGANDataset(wav_corpus))
+    j = jmains.make_vqvae_loader(jcfg, jds.VQGANDataset(wav_corpus))
+    pairs = list(zip(itertools.islice(iter(t), 4), itertools.islice(iter(j), 4)))
+    assert len(pairs) == 4
+    for a, b in pairs:
+        assert ("wav_warped" in a) == (not device_warp)
+        _equal(a, b)

@@ -12,7 +12,13 @@ widths:
   on the same file (1e-4); the diffusion export holds the JAX init's tree;
 - porting: forward ∘ inverse is the identity on both models' trees;
 - the CLI trains on the CPU only with --device cpu, and what it trains
-  serves through TextToSpeech.from_checkpoints."""
+  serves through TextToSpeech.from_checkpoints;
+- the codec GAN (its paired generator / discriminator state): a resumed run
+  ends bit-equal to the uninterrupted one (both models, both optimizers,
+  the codebook, the losses); `train.mains vqvae --device cpu` trains 2 steps
+  on a wav corpus, and its export_model("vqvae") release, loaded by the JAX
+  package, gives the port's extract_code codes; the codec and
+  discriminator maps' forward ∘ inverse is the identity."""
 
 import dataclasses
 import json
@@ -30,12 +36,18 @@ import torch
 from test_api import TINY as JTINY
 from test_torch_codec_synth import seeded_variables
 from test_torch_config import TINY
+from test_torch_train_data import write_wav_corpus
+from test_torch_vqvae_train import torch_threads  # noqa: F401 (autouse)
 from ttts_tpu.models import diffusion_net as jdn
+from ttts_tpu.models import discriminator as jdisc
 from ttts_tpu.models import gpt as jgpt
+from ttts_tpu.models import vqvae as jvqvae
+from ttts_tpu.models.quantize import rvq_state_from_dict
 from ttts_tpu.train.checkpoints import load_release as jload_release
 from ttts_tpu_torch import porting
 from ttts_tpu_torch.data.manifest import save_sidecar, write_manifest
 from ttts_tpu_torch.infer_utils import load_model
+from ttts_tpu_torch.models import vqvae
 from ttts_tpu_torch.train import mains
 from ttts_tpu_torch.train.checkpoints import CheckpointManager, export_model
 from ttts_tpu_torch.train.state import TrainState, make_adamw
@@ -231,7 +243,7 @@ def test_cli_trains_on_cpu_and_serves(corpus, tmp_path):
     cfg = tmp_path / "cfg.json"
     cfg.write_text(json.dumps(dataclasses.asdict(_cfg(2, save_freq=1))))
     with pytest.raises(NotImplementedError, match="item 7"):
-        mains.main(["vqvae", "--manifest", corpus])
+        mains.main(["clvp", "--manifest", corpus])
     if not torch.cuda.is_available():  # the card is the default device
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mains.main(["gpt", "--manifest", corpus, "--config", str(cfg), "--logs",
@@ -253,3 +265,129 @@ def test_cli_trains_on_cpu_and_serves(corpus, tmp_path):
     wav = tts.tts(TEXTS[0], (0.1 * rng.standard_normal(32000)).astype(np.float32), 32000,
                   preset="ultra_fast", max_generate_length=16, seed=0)
     assert wav.size and np.isfinite(wav).all()
+
+
+# ------------------------------------------------------------- codec GAN
+
+
+@pytest.fixture(scope="module")
+def wav_corpus(tmp_path_factory):
+    return write_wav_corpus(tmp_path_factory.mktemp("gan"), rows=10, seed=1)
+
+
+def _gan_cfg(steps, save_freq=2):
+    return dataclasses.replace(TINY, train=dataclasses.replace(
+        TINY.train, train_steps=steps, save_freq=save_freq, batch_size=2))
+
+
+def test_gan_resume_is_bit_equal(wav_corpus, tmp_path):
+    """TINY's codec and the full MultiPeriodDiscriminator, the device warp
+    and the EQ on (TINY's train config), the k-means init in step 1."""
+    full = mains.vqvae_trainer(_gan_cfg(4), wav_corpus, str(tmp_path / "full"), "cpu")
+    full.train()
+    half = mains.vqvae_trainer(_gan_cfg(2), wav_corpus, str(tmp_path / "half"), "cpu")
+    half.train()
+    resumed = mains.vqvae_trainer(_gan_cfg(4), wav_corpus, str(tmp_path / "half"), "cpu")
+    assert resumed.step == 2
+    resumed.train()
+    assert [h["step"] for h in resumed.history] == [3, 4]
+    for a, b in zip(list(full.history)[2:], resumed.history):
+        for k in ("loss_disc", "loss_gen_all", "loss_mel", "commit_loss"):
+            assert float(a[k]) == float(b[k]), k
+    sa, sb = full.state.state_dict(), resumed.state.state_dict()
+    for side in ("g", "d"):
+        assert sa[side]["step"] == sb[side]["step"] == 4
+        for k, v in sa[side]["model"].items():
+            assert torch.equal(v, sb[side]["model"][k]), (side, k)
+        ma, mb = (sd[side]["optimizer"]["adamw"]["state"] for sd in (sa, sb))
+        assert ma.keys() == mb.keys()
+        for i in ma:
+            for k in ("step", "exp_avg", "exp_avg_sq"):
+                assert torch.equal(ma[i][k], mb[i][k]), (side, i, k)
+    assert bool(sa["g"]["model"]["quantizer.vq.layers.0._codebook.inited"])
+
+
+def _extract_inputs(seed=2, frames=12):
+    from ttts_tpu_torch.ops.mel import vits_spectrogram
+
+    a = TINY.audio
+    wav = (0.3 * np.random.default_rng(seed).standard_normal((1, frames * a.hop_length))
+           ).astype(np.float32)
+    spec = vits_spectrogram(torch.tensor(wav), a.filter_length, a.hop_length,
+                            a.win_length).transpose(1, 2).numpy()
+    return wav[..., None], spec, np.asarray([frames], np.int32)
+
+
+def test_cli_trains_vqvae_on_cpu_and_exports(wav_corpus, tmp_path):
+    from ttts_tpu_torch.models.vqvae import SynthesizerTrn
+
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps(dataclasses.asdict(_gan_cfg(2, save_freq=1))))
+    mains.main(["vqvae", "--manifest", wav_corpus, "--config", str(cfg), "--logs",
+                str(tmp_path / "gan"), "--device", "cpu"])
+    ckpt = CheckpointManager(tmp_path / "gan" / "ckpt")
+    assert ckpt.all_steps() == [1, 2]
+    _, tree = ckpt.restore()
+    sd = tree["state"]["g"]["model"]
+    assert any(k.startswith("enc_q.") for k in sd) and float(sd[
+        "quantizer.vq.layers.0._codebook.inited"][0]) == 1.0
+    export_model("vqvae", sd, tmp_path / "codec.npz", config={"stage": "vqvae"})
+    jtree, jcfg = jload_release(tmp_path / "codec.npz")
+    assert jcfg == {"stage": "vqvae"} and "enc_q" not in jtree["params"]
+    wav, spec, lengths = _extract_inputs()
+    jmodel = jvqvae.SynthesizerTrn(JTINY.vqvae, spec_channels=JTINY.audio.filter_length // 2 + 1)
+    want = np.asarray(jmodel.apply(rvq_state_from_dict(jtree), jnp.asarray(wav),
+                                   jnp.asarray(spec), jnp.asarray(lengths),
+                                   method=jmodel.extract_code))
+    port, _ = load_model("vqvae", tmp_path / "codec.npz", TINY)
+    trained = SynthesizerTrn(TINY.vqvae, spec_channels=TINY.audio.filter_length // 2 + 1,
+                             segment_frames=4, for_training=True)
+    trained.load_state_dict(sd)
+    with torch.no_grad():
+        args = (torch.tensor(wav), torch.tensor(spec), torch.tensor(lengths).long())
+        got = port.extract_code(*args).numpy()
+        own = trained.eval().extract_code(*args).numpy()
+    assert want.shape == got.shape == (1, TINY.vqvae.n_q, 6)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(own, want)
+
+
+@pytest.mark.parametrize("which", ["codec_training", "codec_serving", "discriminator"])
+def test_gan_maps_forward_inverse_identity(which):
+    """JAX variables → state dict → JAX variables, leaf for leaf, and state
+    dict → variables → state dict, exactly. The training codec's state dict
+    without enc_q loads into a serving codec as it is (one layout)."""
+    from test_torch_vqvae_train import training_variables
+
+    if which == "discriminator":
+        seg = jnp.zeros((1, 2560, 1))
+        variables = seeded_variables(lambda: jdisc.MultiPeriodDiscriminator(periods=(2, 3)).init(
+            jax.random.key(0), seg, seg))
+        sd = porting.discriminator_state_dict(variables)
+        back = porting.VARIABLES_FNS["discriminator"](sd)
+        again = porting.discriminator_state_dict(back)
+    else:
+        training = which == "codec_training"
+        model = jvqvae.SynthesizerTrn(JTINY.vqvae, spec_channels=513, segment_frames=4)
+        variables = training_variables(model, seed=4)
+        if not training:
+            variables["params"].pop("enc_q")
+        variables = jax.tree_util.tree_map(np.asarray, variables)
+        variables["codebook"]["quantizer"]["state"] = {
+            k: np.asarray(getattr(variables["codebook"]["quantizer"]["state"], k))
+            for k in ("embed", "embed_avg", "cluster_size", "inited")}
+        sd = porting.synthesizer_trn_state_dict(variables, for_training=training)
+        back = porting.VARIABLES_FNS["vqvae"](sd)
+        again = porting.synthesizer_trn_state_dict(back, for_training=training)
+    fa = flax.traverse_util.flatten_dict(jax.tree_util.tree_map(np.asarray, variables))
+    fb = flax.traverse_util.flatten_dict(back)
+    assert set(fa) == set(fb), (set(fa) ^ set(fb))
+    for k in fa:
+        np.testing.assert_array_equal(fa[k], fb[k], err_msg=str(k))
+    assert again.keys() == sd.keys()
+    for k in sd:
+        np.testing.assert_array_equal(again[k], sd[k], err_msg=k)
+    if which == "codec_training":
+        serving = vqvae.SynthesizerTrn(TINY.vqvae, spec_channels=513, segment_frames=4)
+        serving.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()
+                                 if not k.startswith("enc_q.")})

@@ -1,7 +1,7 @@
 """WAV read and write, the port's own copy of the standard-library path of
-ttts_tpu/data/audio.py (`load_wav`, `save_wav`): PCM16 and PCM32 through
-`wave`, channels averaged to mono, resampled by ops/resample.py. The JAX
-package's native reader is not ported."""
+ttts_tpu/data/audio.py (`load_wav`, `save_wav`, `wav_frames`): PCM16 and
+PCM32 through `wave`, channels averaged to mono, resampled by
+ops/resample.py. The JAX package's native reader is not ported."""
 
 from __future__ import annotations
 
@@ -32,6 +32,14 @@ def load_wav(path: str | pathlib.Path, target_sr: Optional[int] = None) -> Tuple
         data = resample(torch.from_numpy(data), sr, target_sr).numpy()
         sr = target_sr
     return data, sr
+
+
+def wav_frames(path: str | pathlib.Path, target_sr: Optional[int] = None) -> int:
+    """The frame count from the WAV header alone (no decode), rescaled to
+    `target_sr` when given, for the bucket sampler's length scan."""
+    with wave.open(str(path), "rb") as w:
+        n, sr = w.getnframes(), w.getframerate()
+    return n if not target_sr else int(n * target_sr / sr)
 
 
 def save_wav(path: str | pathlib.Path, data: np.ndarray, sample_rate: int) -> None:

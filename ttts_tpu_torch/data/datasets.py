@@ -8,8 +8,12 @@ padded numpy batches, with the reference's filters:
     utterance, capped at 200 frames, drawn from the dataset's numpy
     generator as the JAX package draws it; target mel cap 400 frames, 100
     codes.
-Batches pad to multiples of `pad_to`, as the JAX package's do. The VQ-GAN,
-CLVP and mel-classifier datasets are not ported yet.
+  - VQGANDataset (ttts/vqvae/dataset.py:30-113): wav + text for the codec
+    GAN; duration filter 0.65-54 s, wav → mono 32 kHz cut to whole hops and
+    clipped to [-1, 1], pinyin → BPE; frames padded to a multiple of 8, text
+    to 16 (ttts_tpu/data/datasets.py:184-228).
+Batches pad to multiples of `pad_to`, as the JAX package's do. The CLVP and
+mel-classifier datasets are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ttts_tpu_torch.data.audio import load_wav
 from ttts_tpu_torch.data.manifest import load_sidecar, read_manifest, sidecar_shape
 from ttts_tpu_torch.text import VoiceBpeTokenizer, default_tokenizer, text_to_pinyin
 
@@ -173,4 +178,49 @@ class DiffusionDataset:
             "refer_lengths": np.asarray([e["refer"].shape[0] for e in ex], np.int32),
             "mel_codes": np.stack([_pad_to(e["codes"], lc) for e in ex]),
             "wav_lengths": np.asarray([e["wav_length"] for e in ex], np.int32),
+        }
+
+
+class VQGANDataset:
+    """wav (+ text) for codec GAN training."""
+
+    def __init__(self, manifest_path: str, sample_rate: int = 32000, hop_length: int = 640,
+                 min_seconds: float = 0.65, max_seconds: float = 54.0,
+                 tokenizer: Optional[VoiceBpeTokenizer] = None):
+        self.rows = read_manifest(manifest_path)
+        self.sample_rate = sample_rate
+        self.hop = hop_length
+        self.min_samples = int(min_seconds * sample_rate)
+        self.max_samples = int(max_seconds * sample_rate)
+        self.tok = tokenizer or default_tokenizer()
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx: int) -> Optional[dict]:
+        row = self.rows[idx]
+        try:
+            wav, _ = load_wav(row["path"], target_sr=self.sample_rate)
+            if not (self.min_samples <= len(wav) <= self.max_samples):
+                return None  # vqvae/dataset.py:43-49
+            wav = np.clip(wav[: (len(wav) // self.hop) * self.hop], -1.0, 1.0)
+            ids = np.asarray(self.tok.encode(text_to_pinyin(row["text"])), np.int32)
+            return {"wav": wav.astype(np.float32), "text": ids}
+        except Exception:
+            return None
+
+    def collate(self, examples, pad_to_frames: int = 8):
+        ex = [e for e in examples if e is not None]
+        if not ex:
+            return None
+        frames = [len(e["wav"]) // self.hop for e in ex]
+        lf = _round_up(max(frames), pad_to_frames)
+        lt = _round_up(max(len(e["text"]) for e in ex), 16)
+        wav = np.stack([_pad_to(e["wav"], lf * self.hop) for e in ex])[..., None]
+        return {
+            "wav": wav,
+            "wav_lengths": np.asarray([len(e["wav"]) for e in ex], np.int32),
+            "spec_lengths": np.asarray(frames, np.int32),
+            "text": np.stack([_pad_to(e["text"], lt) for e in ex]),
+            "text_lengths": np.asarray([len(e["text"]) for e in ex], np.int32),
         }

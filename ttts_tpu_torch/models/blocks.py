@@ -5,6 +5,11 @@ floats, as in the JAX package. Parameters carry the reference's torch names
 (ttts/vqvae/modules.py, attentions.py, alias_free_torch) and torch layouts:
 conv weights (out, in/groups, k), linear weights (out, in), weight-normed
 convs as (weight_g, weight_v).
+
+Dropout sits where the JAX package's blocks have it (WN's gate, the
+attention probabilities, ConvFFN, TransformerEncoder's two branches,
+MelStyleEncoder), at the same rates, and acts in train mode only
+(`module.train()`): serving calls `.eval()`, so it computes as before.
 """
 
 from __future__ import annotations
@@ -90,11 +95,11 @@ class Conv1d(nn.Module):
 class ConvTranspose1d(nn.Module):
     """Transposed 1D conv on (B, T, C) as torch's ConvTranspose1d(k, stride,
     padding): out_len = (T - 1) * stride - 2 * padding + k. The weight is
-    (in, out, k); with weight norm it is g * v / ||v|| with the norm over
-    (out, k) per *input* channel, the reference's torch weight norm (dim 0),
-    so released reference checkpoints load as they are. (The JAX module
-    normalises per output channel; ttts_tpu_torch.porting fuses its kernel
-    into v with g the per-input norm, so the effective weight is JAX's.)"""
+    (in, out, k). With weight norm it is the JAX module's parameterisation,
+    trained as JAX trains it: v * g / max(||v||, 1e-12) with the norm over
+    (in, k) per *output* channel (weight_g (1, out, 1)). (The reference's
+    torch weight norm is per input channel: ttts_tpu's porting fuses such a
+    checkpoint's weight and renormalises it per output channel.)"""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int,
                  padding: int = 0, weight_norm: bool = False):
@@ -104,7 +109,7 @@ class ConvTranspose1d(nn.Module):
         w = torch.empty(in_ch, out_ch, kernel_size).uniform_(-bound, bound)
         if weight_norm:
             self.weight_v = nn.Parameter(w)
-            self.weight_g = nn.Parameter(w.norm(dim=(1, 2), keepdim=True))
+            self.weight_g = nn.Parameter(w.norm(dim=(0, 2), keepdim=True))
         else:
             self.weight = nn.Parameter(w)
         self.weight_norm = weight_norm
@@ -114,7 +119,7 @@ class ConvTranspose1d(nn.Module):
         if not self.weight_norm:
             return self.weight
         v = self.weight_v
-        return self.weight_g * v / v.norm(dim=(1, 2), keepdim=True)
+        return v * (self.weight_g / v.norm(dim=(0, 2), keepdim=True).clamp_min(1e-12))
 
     def forward(self, x):
         w = self.kernel()
@@ -199,12 +204,15 @@ class AntiAliasedActivation(nn.Module):
 
 
 class WN(nn.Module):
-    """WaveNet gated stack (modules.WN): cond_layer, in_layers, res_skip_layers."""
+    """WaveNet gated stack (modules.WN): cond_layer, in_layers, res_skip_layers;
+    dropout on the gate's output at `p_dropout` (0 in every codec module, as
+    in JAX)."""
 
     def __init__(self, hidden: int, kernel_size: int, dilation_rate: int, n_layers: int,
-                 gin_channels: int = 0):
+                 gin_channels: int = 0, p_dropout: float = 0.0):
         super().__init__()
         self.hidden, self.n_layers = hidden, n_layers
+        self.drop = nn.Dropout(p_dropout)
         if gin_channels:
             self.cond_layer = Conv1d(gin_channels, 2 * hidden * n_layers, 1,
                                      padding=(0, 0), weight_norm=True)
@@ -224,7 +232,7 @@ class WN(nn.Module):
             x_in = self.in_layers[i](x)
             if g is not None:
                 x_in = x_in + g_all[..., i * 2 * h: (i + 1) * 2 * h]
-            acts = torch.tanh(x_in[..., :h]) * torch.sigmoid(x_in[..., h:])
+            acts = self.drop(torch.tanh(x_in[..., :h]) * torch.sigmoid(x_in[..., h:]))
             res_skip = self.res_skip_layers[i](acts)
             if i < self.n_layers - 1:
                 x = (x + res_skip[..., :h]) * x_mask
@@ -262,12 +270,14 @@ class ResBlock1(nn.Module):
 class RelPosMultiHeadAttention(nn.Module):
     """Multi-head attention with 1x1 conv projections (attentions.
     MultiHeadAttention, no window), used by MelStyleEncoder as its
-    `slf_attn` with Linear projections w_qs, w_ks, w_vs, fc."""
+    `slf_attn` with Linear projections w_qs, w_ks, w_vs, fc; dropout on the
+    probabilities at `p_dropout`."""
 
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 qk_scale: Optional[float] = None):
+                 qk_scale: Optional[float] = None, p_dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
+        self.drop = nn.Dropout(p_dropout)
         dk = channels // n_heads
         self.scale = qk_scale if qk_scale is not None else 1.0 / math.sqrt(dk)
         self.w_qs = Linear(channels, channels)
@@ -284,21 +294,23 @@ class RelPosMultiHeadAttention(nn.Module):
         scores = (q * self.scale) @ k.transpose(-1, -2)
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask == 0, -1e4)
-        p = torch.softmax(scores, dim=-1)
+        p = self.drop(torch.softmax(scores, dim=-1))
         return self.fc((p @ v).transpose(1, 2).reshape(b, t, d))
 
 
 class Conv1dGLU(nn.Module):
-    """conv → GLU gate with residual (modules.Conv1dGLU; key conv1.conv)."""
+    """conv → GLU gate with residual (modules.Conv1dGLU; key conv1.conv);
+    dropout on the gated branch only."""
 
-    def __init__(self, channels: int, kernel_size: int):
+    def __init__(self, channels: int, kernel_size: int, p_dropout: float = 0.0):
         super().__init__()
         self.conv1 = nn.Module()
         self.conv1.conv = Conv1d(channels, 2 * channels, kernel_size)
+        self.drop = nn.Dropout(p_dropout)
 
     def forward(self, x):
         a, b = self.conv1.conv(x).chunk(2, dim=-1)
-        return x + a * torch.sigmoid(b)
+        return x + self.drop(a * torch.sigmoid(b))
 
 
 class _FC(nn.Module):
@@ -314,23 +326,27 @@ class _FC(nn.Module):
 
 class MelStyleEncoder(nn.Module):
     """Spectral MLP → Conv1dGLU x2 → self-attention → masked temporal mean
-    (modules.MelStyleEncoder). (B, T, n_mel) → (B, style_vector_dim)."""
+    (modules.MelStyleEncoder). (B, T, n_mel) → (B, style_vector_dim). Dropout
+    at `p_dropout` (0.1, the JAX package's fixed rate) after each spectral
+    layer, in the gates and on the attention probabilities."""
 
     def __init__(self, n_mel_channels: int = 80, style_hidden: int = 128,
                  style_vector_dim: int = 256, style_kernel_size: int = 5,
-                 style_head: int = 2):
+                 style_head: int = 2, p_dropout: float = 0.1):
         super().__init__()
         self.spectral = nn.ModuleDict({"0": _FC(n_mel_channels, style_hidden),
                                        "3": _FC(style_hidden, style_hidden)})
-        self.temporal = nn.ModuleList(Conv1dGLU(style_hidden, style_kernel_size)
+        self.temporal = nn.ModuleList(Conv1dGLU(style_hidden, style_kernel_size, p_dropout)
                                       for _ in range(2))
         self.slf_attn = RelPosMultiHeadAttention(style_hidden, style_hidden, style_head,
-                                                 qk_scale=style_hidden ** -0.5)
+                                                 qk_scale=style_hidden ** -0.5,
+                                                 p_dropout=p_dropout)
         self.fc = _FC(style_hidden, style_vector_dim)
+        self.drop = nn.Dropout(p_dropout)
 
     def forward(self, x, mask=None):
-        x = mish(self.spectral["0"](x))
-        x = mish(self.spectral["3"](x))
+        x = self.drop(mish(self.spectral["0"](x)))
+        x = self.drop(mish(self.spectral["3"](x)))
         for m in self.temporal:
             x = m(x)
         attn_mask = None
@@ -380,12 +396,14 @@ class MultiHeadAttention(nn.Module):
     conv_o, emb_rel_k, emb_rel_v; the heads share one (1, 2w+1, dk) table
     each, as every configuration does. Masked scores are -1e4, as in JAX.
     Plain PyTorch: the JAX package computes it outside any Pallas kernel, at
-    widths (192 wide, 2 heads) too small to want one."""
+    widths (192 wide, 2 heads) too small to want one. Dropout on the
+    probabilities at `p_dropout`."""
 
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: Optional[int] = None):
+                 window_size: Optional[int] = None, p_dropout: float = 0.0):
         super().__init__()
         self.n_heads, self.window_size = n_heads, window_size
+        self.drop = nn.Dropout(p_dropout)
         self.dk = dk = channels // n_heads
         self.conv_q, self.conv_k, self.conv_v = (
             Conv1d(channels, channels, 1, padding=(0, 0)) for _ in range(3))
@@ -411,7 +429,7 @@ class MultiHeadAttention(nn.Module):
             scores = scores + _rel_to_abs(rel)
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask == 0, -1e4)
-        p = torch.softmax(scores, dim=-1)
+        p = self.drop(torch.softmax(scores, dim=-1))
         out = p @ v
         if self.window_size is not None:
             rel_v = _get_rel_embeddings(self.emb_rel_v, t, self.window_size)[0]
@@ -420,41 +438,46 @@ class MultiHeadAttention(nn.Module):
 
 
 class ConvFFN(nn.Module):
-    """conv → ReLU → conv, masked (attentions.FFN; keys conv_1, conv_2)."""
+    """conv → ReLU → dropout → conv, masked (attentions.FFN; keys conv_1,
+    conv_2)."""
 
     def __init__(self, channels: int, out_channels: int, filter_channels: int,
-                 kernel_size: int):
+                 kernel_size: int, p_dropout: float = 0.0):
         super().__init__()
         self.conv_1 = Conv1d(channels, filter_channels, kernel_size)
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size)
+        self.drop = nn.Dropout(p_dropout)
 
     def forward(self, x, x_mask):
-        x = torch.relu(self.conv_1(x * x_mask))
+        x = self.drop(torch.relu(self.conv_1(x * x_mask)))
         return self.conv_2(x * x_mask) * x_mask
 
 
 class TransformerEncoder(nn.Module):
     """Post-LN transformer with windowed relative-position self-attention
     (attentions.Encoder; keys attn_layers, norm_layers_1, ffn_layers,
-    norm_layers_2)."""
+    norm_layers_2); dropout at `p_dropout` on the attention probabilities,
+    inside the FFN and on both branches before their residual adds."""
 
     def __init__(self, hidden_channels: int, filter_channels: int, n_heads: int,
-                 n_layers: int, kernel_size: int = 1, window_size: int = 4):
+                 n_layers: int, kernel_size: int = 1, window_size: int = 4,
+                 p_dropout: float = 0.0):
         super().__init__()
         hc = hidden_channels
         self.attn_layers = nn.ModuleList(
-            MultiHeadAttention(hc, hc, n_heads, window_size=window_size)
+            MultiHeadAttention(hc, hc, n_heads, window_size=window_size, p_dropout=p_dropout)
             for _ in range(n_layers))
         self.norm_layers_1 = nn.ModuleList(LayerNorm(hc) for _ in range(n_layers))
-        self.ffn_layers = nn.ModuleList(ConvFFN(hc, hc, filter_channels, kernel_size)
-                                        for _ in range(n_layers))
+        self.ffn_layers = nn.ModuleList(ConvFFN(hc, hc, filter_channels, kernel_size,
+                                                p_dropout) for _ in range(n_layers))
         self.norm_layers_2 = nn.ModuleList(LayerNorm(hc) for _ in range(n_layers))
+        self.drop = nn.Dropout(p_dropout)
 
     def forward(self, x, x_mask):
         attn_mask = x_mask[:, None, :, 0][:, :, None, :] * x_mask[:, None, :, 0][:, :, :, None]
         x = x * x_mask
         for attn, norm1, ffn, norm2 in zip(self.attn_layers, self.norm_layers_1,
                                            self.ffn_layers, self.norm_layers_2):
-            x = norm1(x + attn(x, x, attn_mask))
-            x = norm2(x + ffn(x, x_mask))
+            x = norm1(x + self.drop(attn(x, x, attn_mask)))
+            x = norm2(x + self.drop(ffn(x, x_mask)))
         return x * x_mask

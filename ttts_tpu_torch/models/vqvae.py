@@ -1,11 +1,14 @@
 """The codec, port of ttts_tpu/models/vqvae.py SynthesizerTrn: its extract
 path (`extract_code`: ref_enc (MelStyleEncoder), enc_p
-(PosteriorAudioEncoder), the stride-2 proj and the RVQ codebook) and its
+(PosteriorAudioEncoder), the stride-2 proj and the RVQ codebook), its
 synthesis half (`infer`, codec reconstruction, and `decode`, codes + text +
 reference spectrogram → wav: enc_p_2 (TextEncoder with MRTE), the coupling
-flow's reverse pass and the HiFi-GAN generator dec). enc_q and the training
-forward are not built (training waits; release checkpoints drop enc_q).
-State-dict keys are the reference's (ttts/vqvae/vq2.py).
+flow's reverse pass and the HiFi-GAN generator dec) and, built with
+`for_training=True`, its training forward (`forward`, JAX's `__call__`: the
+posterior enc_q, the flow, the EMA / k-means codebook update and the
+decoder on random slices). Release checkpoints drop enc_q, and a serving
+model does not build it. State-dict keys are the reference's
+(ttts/vqvae/vq2.py).
 
 The quantizer's nearest-code search runs the VQ kernel on the card
 (models/quantize.nearest); the convolutions are cuDNN, which the caller
@@ -13,7 +16,7 @@ keeps out of TF32 (api.py), as the JAX package leaves them to XLA."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -32,7 +35,14 @@ from ttts_tpu_torch.models.blocks import (
     WN,
     sequence_mask,
 )
-from ttts_tpu_torch.models.quantize import rvq_decode, rvq_encode, rvq_quantize
+from ttts_tpu_torch.models.quantize import (
+    RVQState,
+    rvq_decode,
+    rvq_encode,
+    rvq_forward,
+    rvq_init,
+    rvq_quantize,
+)
 
 
 class PosteriorAudioEncoder(nn.Module):
@@ -65,7 +75,9 @@ class PosteriorAudioEncoder(nn.Module):
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers, gin_channels)
         self.proj = Conv1d(2 * hidden_channels, 2 * out_channels, 1, padding=(0, 0))
 
-    def forward(self, spec, audio, x_mask, g=None):
+    def forward(self, spec, audio, x_mask, g=None, noise: Optional[torch.Tensor] = None):
+        """→ (z, m, logs), (B, T, out_channels) each: z = (m + noise *
+        exp(logs)) * x_mask, or m * x_mask without noise."""
         a = self.down_pre(audio)
         for i, down in enumerate(self.downs):
             a = down(a)
@@ -76,8 +88,10 @@ class PosteriorAudioEncoder(nn.Module):
         x = self.enc(x, x_mask, g=g)
         x = torch.cat([x, a * x_mask], dim=-1)
         stats = self.proj(x) * x_mask
-        m, _ = stats.chunk(2, dim=-1)
-        return m * x_mask
+        m, logs = stats.chunk(2, dim=-1)
+        if noise is None:
+            return m * x_mask, m, logs
+        return (m + noise * torch.exp(logs)) * x_mask, m, logs
 
 
 class _Codebook(nn.Module):
@@ -86,28 +100,61 @@ class _Codebook(nn.Module):
 
     def __init__(self, bins: int, dim: int):
         super().__init__()
-        self.register_buffer("embed", torch.randn(bins, dim))
-        self.register_buffer("embed_avg", self.embed.clone())
+        embed = torch.randn(bins, dim)
+        self.register_buffer("embed", embed)
+        self.register_buffer("embed_avg", embed.clone())
         self.register_buffer("cluster_size", torch.ones(bins))
         self.register_buffer("inited", torch.ones(1))
 
 
 class ResidualVQ(nn.Module):
-    """Keys quantizer.vq.layers.{i}._codebook.*."""
+    """Keys quantizer.vq.layers.{i}._codebook.*; the codebook buffers are
+    rvq_forward's state, updated in place by a training forward.
+    `kmeans_pending`: the buffers start from rvq_init's state."""
 
-    def __init__(self, dim: int, n_q: int = 1, bins: int = 1024):
+    def __init__(self, dim: int, n_q: int = 1, bins: int = 1024, decay: float = 0.99,
+                 kmeans_seeding: str = "farthest_point", kmeans_pending: bool = False):
         super().__init__()
+        self.decay, self.kmeans_seeding = decay, kmeans_seeding
         self.vq = nn.Module()
         self.vq.layers = nn.ModuleList(nn.Module() for _ in range(n_q))
         for layer in self.vq.layers:
             layer._codebook = _Codebook(bins, dim)
+        if kmeans_pending:
+            self.set_state(rvq_init(n_q, bins, dim))
 
     def _embed(self) -> torch.Tensor:
         return torch.stack([layer._codebook.embed for layer in self.vq.layers])
 
+    def state(self) -> RVQState:
+        cbs = [layer._codebook for layer in self.vq.layers]
+        return RVQState(embed=torch.stack([c.embed for c in cbs]),
+                        embed_avg=torch.stack([c.embed_avg for c in cbs]),
+                        cluster_size=torch.stack([c.cluster_size for c in cbs]),
+                        inited=cbs[0].inited[0] > 0)
+
+    @torch.no_grad()
+    def set_state(self, st: RVQState) -> None:
+        for i, layer in enumerate(self.vq.layers):
+            cb = layer._codebook
+            cb.embed.copy_(st.embed[i])
+            cb.embed_avg.copy_(st.embed_avg[i])
+            cb.cluster_size.copy_(st.cluster_size[i])
+            cb.inited.fill_(float(bool(st.inited)))
+
     def forward(self, x):
         """The eval forward: x (B, T, D) → (quantized (B, T, D), codes (n_q, B, T))."""
         return rvq_quantize(self._embed(), x)
+
+    def forward_train(self, x, draws=None, generator: Optional[torch.Generator] = None):
+        """The training forward (rvq_forward): x (B, T, D) →
+        (quantized (B, T, D) through the straight-through estimator, codes
+        (n_q, B, T), commit loss); the buffers take the updated codebook."""
+        q, codes, loss, st = rvq_forward(self.state(), x, draws=draws, decay=self.decay,
+                                         kmeans_seeding=self.kmeans_seeding,
+                                         generator=generator)
+        self.set_state(st)
+        return q, codes, loss
 
     def encode(self, x):
         """x (B, T, D) → codes (n_q, B, T)."""
@@ -146,10 +193,10 @@ class TextEncoder(nn.Module):
 
     def __init__(self, out_channels: int, hidden_channels: int, filter_channels: int,
                  n_heads: int, n_layers: int, kernel_size: int, n_text_tokens: int = 256,
-                 mrte_hidden: int = 512):
+                 mrte_hidden: int = 512, p_dropout: float = 0.0):
         super().__init__()
         enc = lambda n: TransformerEncoder(  # noqa: E731
-            hidden_channels, filter_channels, n_heads, n, kernel_size)
+            hidden_channels, filter_channels, n_heads, n, kernel_size, p_dropout=p_dropout)
         self.encoder_ssl = enc(n_layers // 2)
         self.text_embedding = nn.Embedding(n_text_tokens, hidden_channels)
         self.encoder_text = enc(n_layers)
@@ -258,24 +305,58 @@ class Generator(nn.Module):
         return torch.tanh(self.conv_post(F.leaky_relu(x, 0.01)))
 
 
-class SynthesizerTrn(nn.Module):
-    """The codec for serving (vq2.py:749), enc_q left out. Channels-last:
-    spec (B, T, spec_channels), wav (B, T*hop, 1), text (B, L) ids."""
+def rand_slice_segments(x: torch.Tensor, lengths: torch.Tensor, segment_frames: int,
+                        ids: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Random fixed-size slices (commons.rand_slice_segments): x (B, T, C)
+    → (x[b, ids_b : ids_b + segment_frames], ids), ids = floor(u * (max(len
+    - segment_frames, 0) + 1)) with u uniform (drawn from `generator` when
+    `ids` is None)."""
+    if ids is None:
+        u = torch.rand(x.shape[0], generator=generator).to(x.device)
+        ids = (u * ((lengths - segment_frames).clamp_min(0) + 1)).long()
+    return slice_segments(x, ids, segment_frames), ids
 
-    def __init__(self, cfg: VQVAEConfig, spec_channels: int = 1025):
+
+def slice_segments(x: torch.Tensor, ids: torch.Tensor, segment_frames: int) -> torch.Tensor:
+    """x (B, T, C) → x[b, ids_b : ids_b + segment_frames], each start
+    clamped into [0, T - segment_frames] as jax.lax.dynamic_slice clamps."""
+    if segment_frames > x.shape[1]:
+        raise ValueError(f"a slice of {segment_frames} frames of {x.shape[1]}")
+    start = ids.to(x.device).long().clamp(0, x.shape[1] - segment_frames)
+    idx = start[:, None] + torch.arange(segment_frames, device=x.device)[None]
+    return x.gather(1, idx[..., None].expand(-1, -1, x.shape[2]))
+
+
+class SynthesizerTrn(nn.Module):
+    """The codec (vq2.py:749). Channels-last: spec (B, T, spec_channels),
+    wav (B, T*hop, 1), text (B, L) ids. A serving model leaves enc_q out;
+    `for_training=True` builds enc_q and a codebook waiting for its k-means
+    init (rvq_init), as JAX's training init has it. The two share every
+    other parameter and its layout, so a trained state dict without enc_q
+    loads into a serving model as it is."""
+
+    def __init__(self, cfg: VQVAEConfig, spec_channels: int = 1025, segment_frames: int = 32,
+                 for_training: bool = False):
         super().__init__()
-        c = cfg
+        c = self.cfg = cfg
+        self.segment_frames = segment_frames  # 20480 samples / 640 hop
         self.ref_enc = MelStyleEncoder(n_mel_channels=spec_channels,
                                        style_vector_dim=c.gin_channels)
-        self.enc_p = PosteriorAudioEncoder(
+        post = lambda: PosteriorAudioEncoder(  # noqa: E731
             spec_channels, c.inter_channels, c.hidden_channels, 5, 1,
             c.posterior_wn_layers, gin_channels=c.gin_channels,
             down_rates=c.posterior_down_rates, down_kernels=c.posterior_down_kernels,
             down_channels=c.posterior_down_channels, rb_kernels=c.posterior_rb_kernels,
             rb_dils=c.posterior_rb_dilations)
+        self.enc_p = post()
+        if for_training:
+            self.enc_q = post()
         self.enc_p_2 = TextEncoder(
             c.inter_channels, c.hidden_channels, c.filter_channels, c.n_heads, c.n_layers,
-            c.kernel_size, n_text_tokens=c.n_text_tokens, mrte_hidden=c.gin_channels)
+            c.kernel_size, n_text_tokens=c.n_text_tokens, mrte_hidden=c.gin_channels,
+            p_dropout=c.p_dropout)
         self.flow = ResidualCouplingBlock(
             c.inter_channels, c.hidden_channels, 5, 1, c.flow_wn_layers,
             n_flows=c.flow_layers, gin_channels=c.gin_channels)
@@ -283,14 +364,62 @@ class SynthesizerTrn(nn.Module):
             c.inter_channels, c.resblock_kernel_sizes, c.resblock_dilation_sizes,
             c.upsample_rates, c.upsample_initial_channel, c.upsample_kernel_sizes,
             gin_channels=c.gin_channels)
-        self.quantizer = ResidualVQ(c.inter_channels, c.n_q, c.codebook_bins)
+        self.quantizer = ResidualVQ(c.inter_channels, c.n_q, c.codebook_bins,
+                                    decay=c.codebook_decay, kmeans_seeding=c.kmeans_seeding,
+                                    kmeans_pending=for_training)
         self.proj = Conv1d(c.inter_channels, c.inter_channels, 2, stride=2, padding=(0, 0))
+
+    @staticmethod
+    def _even(spec, what: str) -> None:
+        if spec.shape[1] % 2:
+            raise ValueError(f"{what}: {spec.shape[1]} spectrogram frames; the stride-2 "
+                             "content path needs an even count")
+
+    def forward(self, wav, wav_aug, spec, spec_aug, spec_lengths, text, text_lengths,
+                noise: Optional[torch.Tensor] = None, ids_slice: Optional[torch.Tensor] = None,
+                vq_draws=None, generator: Optional[torch.Generator] = None):
+        """The training forward, JAX's `__call__` (vq2.py:840-871), in train
+        mode when the module is (dropout, the codebook's EMA / k-means
+        update, enc_q's noise, random slices). wav, wav_aug (B, T*hop, 1),
+        spec, spec_aug (B, T, spec_channels), T even → (y_hat (B,
+        segment_frames*hop, 1), commit loss, ids_slice (B,), y_mask (B, T,
+        1), (z, z_p, m_p, logs_p, m_q, logs_q), quantized (B, T, D)).
+        `noise` (enc_q's, the shape of m_q), `ids_slice` and `vq_draws`
+        (quantize.vq_draws) replace the draws from `generator`."""
+        if not hasattr(self, "enc_q"):
+            raise RuntimeError("the training forward needs SynthesizerTrn(for_training=True)")
+        self._even(spec, "forward")
+        train = self.training
+        y_mask = sequence_mask(spec_lengths, spec.shape[1])
+        ge = self.ref_enc(spec * y_mask, y_mask)
+        x = self.proj(self.enc_p(spec_aug, wav_aug, y_mask, g=ge)[0])
+        if train:
+            quantized, _, commit_loss = self.quantizer.forward_train(x, vq_draws, generator)
+        else:
+            quantized, _ = self.quantizer(x)
+            commit_loss = torch.zeros((), device=x.device)
+        quantized = quantized.repeat_interleave(2, dim=1)
+        text_mask = sequence_mask(text_lengths, text.shape[1])
+        _, m_p, logs_p = self.enc_p_2(quantized, y_mask, text, text_mask, ge)
+        if train and noise is None:
+            dev = spec.device if generator is None else generator.device
+            noise = torch.randn(m_p.shape, generator=generator, device=dev).to(spec.device)
+        z, m_q, logs_q = self.enc_q(spec, wav, y_mask, g=ge, noise=noise if train else None)
+        z_p = self.flow(z, y_mask, g=ge)
+        if train:
+            z_slice, ids_slice = rand_slice_segments(z, spec_lengths, self.segment_frames,
+                                                     ids_slice, generator)
+        else:
+            z_slice = z[:, :self.segment_frames]
+            ids_slice = torch.zeros(z.shape[0], dtype=torch.long, device=z.device)
+        o = self.dec(z_slice, g=ge)
+        return o, commit_loss, ids_slice, y_mask, (z, z_p, m_p, logs_p, m_q, logs_q), quantized
 
     def extract_code(self, wav, spec, spec_lengths):
         """wav + spec → semantic VQ codes (B, n_q, T/2) (vq2.py:912-919)."""
         y_mask = sequence_mask(spec_lengths, spec.shape[1])
         ge = self.ref_enc(spec * y_mask, y_mask)
-        x = self.enc_p(spec, wav, y_mask, g=ge)
+        x = self.enc_p(spec, wav, y_mask, g=ge)[0]
         x = self.proj(x * y_mask)
         return self.quantizer.encode(x).transpose(0, 1)
 
@@ -298,7 +427,7 @@ class SynthesizerTrn(nn.Module):
         """enc_p → stride-2 proj → the quantizer's eval forward (the VQ
         kernel) → 2x nearest upsample: (quantized (B, 2*floor(T/2), D),
         codes (n_q, B, T/2))."""
-        quantized, codes = self.quantizer(self.proj(self.enc_p(spec, wav, y_mask, g=ge)))
+        quantized, codes = self.quantizer(self.proj(self.enc_p(spec, wav, y_mask, g=ge)[0]))
         return quantized.repeat_interleave(2, dim=1), codes
 
     def _synthesize(self, quantized, y_mask, text, text_mask, ge, noise_scale, noise,
@@ -320,9 +449,7 @@ class SynthesizerTrn(nn.Module):
         (B, T, spec_channels) → wav (B, T*hop, 1). T must be even: the
         stride-2 content path gives 2*floor(T/2) frames, which the JAX
         package's masks do not broadcast against either."""
-        if spec.shape[1] % 2:
-            raise ValueError(f"infer: {spec.shape[1]} spectrogram frames; the stride-2 "
-                             "content path needs an even count")
+        self._even(spec, "infer")
         y_mask = sequence_mask(spec_lengths, spec.shape[1])
         ge = self.ref_enc(spec * y_mask, y_mask)
         quantized, _ = self._content_codes(spec, wav, y_mask, ge)

@@ -1,8 +1,10 @@
-"""Mel spectrograms, port of ttts_tpu/ops/mel.py (the two conventions on the
-serving path):
+"""Mel spectrograms, port of ttts_tpu/ops/mel.py (the two conventions of the
+serving and codec training paths):
 
 1. VITS codec path: 32 kHz linear spectrogram, reflect pad (n_fft-hop)/2,
-   center=False, sqrt(power + 1e-6).
+   center=False, sqrt(power + 1e-6); the codec GAN's loss mel on top of it
+   (`vits_mel_spectrogram`: a librosa slaney mel matmul, then log(clamp(x,
+   1e-5))).
 2. Acoustic 24 kHz / 100-bin mel (torchaudio MelSpectrogram, center=True,
    power=1, htk scale, no norm) + safe_log.
 """
@@ -76,6 +78,32 @@ def vits_spectrogram(y: torch.Tensor, n_fft: int, hop_length: int,
     y = reflect_pad_last(y, int((n_fft - hop_length) / 2))
     spec = stft(y, n_fft, hop_length, win_length, center=False)
     return torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-6)
+
+
+def dynamic_range_compression(x: torch.Tensor, clip_val: float = 1e-5,
+                              C: float = 1.0) -> torch.Tensor:
+    """log(clamp(x, min=1e-5) * C) (ttts/utils/data_utils.py:21)."""
+    return torch.log(x.clamp_min(clip_val) * C)
+
+
+def spec_to_mel(spec: torch.Tensor, n_fft: int, num_mels: int, sampling_rate: int,
+                fmin: float = 0.0, fmax: Optional[float] = None) -> torch.Tensor:
+    """(..., n_fft//2+1, T) linear spectrogram → (..., num_mels, T) log mel:
+    the slaney filterbank, then dynamic_range_compression
+    (ttts/utils/data_utils.py:90-103)."""
+    basis = torch.from_numpy(mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax,
+                                            scale="slaney", norm="slaney"))
+    return dynamic_range_compression(
+        torch.einsum("mf,...ft->...mt", basis.to(spec.device), spec))
+
+
+def vits_mel_spectrogram(y: torch.Tensor, n_fft: int, num_mels: int, sampling_rate: int,
+                         hop_length: int, win_length: int, fmin: float = 0.0,
+                         fmax: Optional[float] = None) -> torch.Tensor:
+    """(B, T) → (B, num_mels, frames): the codec GAN's loss mel
+    (mel_spectrogram_torch, ttts/utils/data_utils.py:106-155)."""
+    spec = vits_spectrogram(y, n_fft, hop_length, win_length)
+    return spec_to_mel(spec, n_fft, num_mels, sampling_rate, fmin, fmax)
 
 
 def acoustic_mel_spectrogram(audio: torch.Tensor, sample_rate: int = 24000,

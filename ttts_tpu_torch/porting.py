@@ -4,16 +4,19 @@ state dicts (numpy arrays under the reference's torch key names).
 Each function is the inverse of its counterpart in ttts_tpu/models/porting.py
 (or models/vocos.py for Vocos), which map a reference torch state dict onto
 flax params: feeding the state dict produced here back through that function
-returns the JAX params. Inputs are the JAX package's variable trees (nested
-dicts of arrays; jax arrays convert through np.asarray, so no JAX import is
-needed here).
+returns the JAX params. One exception: the codec's transposed convolutions
+(dec.ups.*) keep the JAX module's weight norm, per output channel, where the
+reference's (and so the JAX porter's input) is per input channel. Inputs are
+the JAX package's variable trees (nested dicts of arrays; jax arrays convert
+through np.asarray, so no JAX import is needed here).
 
 Layouts: flax Conv kernels (k, in, out) → torch (out, in, k); flax Dense
 (in, out) → torch Linear (out, in); GPT-2 Conv1D weights stay (in, out);
 flax WeightNorm (kernel v, scale g) → (weight_v, weight_g).
 
 The maps only relayout, so they carry gradients as they carry weights.
-`unified_voice_variables` and `aa_diffusion_variables` go the other way,
+`unified_voice_variables`, `aa_diffusion_variables`,
+`synthesizer_trn_variables` and `discriminator_variables` go the other way,
 from this package's state dicts (numpy arrays or tensors) to the JAX
 variable trees (VARIABLES_FNS; train/checkpoints.export_release writes
 them in the JAX package's release format).
@@ -182,17 +185,10 @@ def _coupling_flow(sd: StateDict, p: str, tree) -> None:
 
 def _conv_transpose(sd: StateDict, p: str, tree) -> None:
     """blocks.ConvTranspose1d {kernel (k, in, out), g (out,), bias} → the
-    reference's weight-normed ConvTranspose1d (weight_v (in, out, k),
-    weight_g (in, 1, 1)). The JAX module normalises per output channel and
-    the reference per input channel, so the effective kernel
-    kernel * g / ||kernel|| is stored as v with g its per-input norm: the
-    port's g * v / ||v|| is then the JAX module's weight (the inverse of
-    ttts_tpu porting._convT, which fuses the other way)."""
-    kernel = _a(tree["kernel"])
-    norm = np.sqrt((kernel.reshape(-1, kernel.shape[-1]) ** 2).sum(0))
-    w = (kernel * (_a(tree["g"]) / np.maximum(norm, 1e-12))).transpose(1, 2, 0)
-    sd[p + ".weight_v"] = w
-    sd[p + ".weight_g"] = np.sqrt((w ** 2).sum(axis=(1, 2), keepdims=True))
+    port's weight-normed ConvTranspose1d, the same parameterisation
+    relaid: weight_v (in, out, k), weight_g (1, out, 1)."""
+    sd[p + ".weight_v"] = _a(tree["kernel"]).transpose(1, 2, 0)
+    sd[p + ".weight_g"] = _a(tree["g"]).reshape(1, -1, 1)
     _bias(sd, p, tree)
 
 
@@ -209,16 +205,18 @@ def _generator(sd: StateDict, p: str, tree) -> None:
             _resblock1(sd, f"{p}.resblocks.{k}", tree[f"ResBlock1_{k}"])
 
 
-def synthesizer_trn_state_dict(variables) -> StateDict:
+def synthesizer_trn_state_dict(variables, for_training: bool = False) -> StateDict:
     """JAX SynthesizerTrn variables {'params', 'codebook'} → the state dict
     of ttts_tpu_torch.models.vqvae.SynthesizerTrn (ref_enc, enc_p, enc_p_2,
-    flow, dec, proj, quantizer; enc_q, which serving does not build and
-    release exports drop, is skipped). Inverse of port_synthesizer_trn_state
-    (for dec's transposed convolutions, in their effective weights)."""
+    flow, dec, proj, the quantizer's full codebook state). enc_q, which
+    serving does not build and release exports drop, is skipped but for
+    the model built with `for_training`."""
     params = variables["params"]
     sd: StateDict = {}
     _mel_style_encoder(sd, "ref_enc", params["ref_enc"])
     _posterior_audio_encoder(sd, "enc_p", params["enc_p"])
+    if for_training:
+        _posterior_audio_encoder(sd, "enc_q", params["enc_q"])
     _text_encoder(sd, "enc_p_2", params["enc_p_2"])
     _coupling_flow(sd, "flow", params["flow"])
     _generator(sd, "dec", params["dec"])
@@ -565,6 +563,39 @@ def perceiver_resampler_state_dict(variables) -> StateDict:
     return sd
 
 
+# ------------------------------------------------------------- discriminator
+
+
+def _wn_conv2d(sd: StateDict, p: str, conv, scale) -> None:
+    """flax WeightNorm(nn.Conv) with a (k, 1) kernel (k, 1, in, out) and its
+    scale (out,) → weight_v (out, in, k, 1), weight_g (out, 1, 1, 1)."""
+    sd[p + ".weight_v"] = _a(conv["kernel"]).transpose(3, 2, 0, 1)
+    sd[p + ".weight_g"] = _a(scale).reshape(-1, 1, 1, 1)
+    _bias(sd, p, conv)
+
+
+def discriminator_state_dict(variables) -> StateDict:
+    """JAX MultiPeriodDiscriminator variables → the state dict of
+    ttts_tpu_torch.models.discriminator.MultiPeriodDiscriminator
+    (discriminators.0 the scale discriminator, discriminators.{1+i} the
+    period discriminators in order)."""
+    params = variables["params"] if "params" in variables else variables
+    sd: StateDict = {}
+    ds = params["DiscriminatorS_0"]
+    n = _count(ds, "Conv1d_")
+    for j in range(n - 1):
+        _conv(sd, f"discriminators.0.convs.{j}", ds[f"Conv1d_{j}"])
+    _conv(sd, "discriminators.0.conv_post", ds[f"Conv1d_{n - 1}"])
+    for i in range(_count(params, "DiscriminatorP_")):
+        dp, pre = params[f"DiscriminatorP_{i}"], f"discriminators.{i + 1}"
+        n = _count(dp, "Conv_")
+        for j in range(n):
+            name = f"{pre}.convs.{j}" if j < n - 1 else f"{pre}.conv_post"
+            _wn_conv2d(sd, name, dp[f"Conv_{j}"],
+                       dp[f"WeightNorm_{j}"][f"Conv_{j}/kernel/scale"])
+    return sd
+
+
 STATE_DICT_FNS = {
     "codec": synthesizer_trn_state_dict,
     "gpt": unified_voice_state_dict,
@@ -572,6 +603,7 @@ STATE_DICT_FNS = {
     "vocos": vocos_state_dict,
     "clvp": clvp_state_dict,
     "classifier": classifier_state_dict,
+    "discriminator": discriminator_state_dict,
 }
 
 
@@ -685,4 +717,175 @@ def aa_diffusion_variables(sd) -> dict:
     return {"params": p}
 
 
-VARIABLES_FNS = {"gpt": unified_voice_variables, "diffusion": aa_diffusion_variables}
+# ----------------------------------------------- codec and discriminator
+
+
+def _inv_bias(sd, p: str, tree: dict) -> dict:
+    if p + ".bias" in sd:
+        tree["bias"] = _np(sd[p + ".bias"])
+    return tree
+
+
+def _inv_conv(sd, p: str) -> dict:
+    """The inverse of _conv: a blocks.Conv1d subtree."""
+    if p + ".weight_v" in sd:
+        kernel = _np(sd[p + ".weight_v"]).transpose(2, 1, 0)
+        return {"Conv_0": _inv_bias(sd, p, {"kernel": kernel}),
+                "WeightNorm_0": {"Conv_0/kernel/scale": _np(sd[p + ".weight_g"]).reshape(-1)}}
+    return {"Conv_0": _inv_bias(sd, p, {"kernel": _np(sd[p + ".weight"]).transpose(2, 1, 0)})}
+
+
+def _inv_linear_as_conv1x1(sd, p: str) -> dict:
+    """The inverse of _conv1x1_as_linear."""
+    return {"Conv_0": _inv_bias(sd, p, {"kernel": _np(sd[p + ".weight"]).T[None]})}
+
+
+def _inv_wn(sd, p: str) -> dict:
+    tree, base = {}, 0
+    if p + ".cond_layer.weight_v" in sd:
+        tree["Conv1d_0"], base = _inv_conv(sd, p + ".cond_layer"), 1
+    for i in _indices(sd, p + ".in_layers."):
+        tree[f"Conv1d_{base + 2 * i}"] = _inv_conv(sd, f"{p}.in_layers.{i}")
+        tree[f"Conv1d_{base + 2 * i + 1}"] = _inv_conv(sd, f"{p}.res_skip_layers.{i}")
+    return tree
+
+
+def _inv_resblock1(sd, p: str) -> dict:
+    tree = {}
+    for j in _indices(sd, p + ".convs1."):
+        tree[f"Conv1d_{2 * j}"] = _inv_conv(sd, f"{p}.convs1.{j}")
+        tree[f"Conv1d_{2 * j + 1}"] = _inv_conv(sd, f"{p}.convs2.{j}")
+    return tree
+
+
+def _inv_mel_style_encoder(sd, p: str) -> dict:
+    att = {f"Conv1d_{i}": _inv_linear_as_conv1x1(sd, f"{p}.slf_attn.{name}")
+           for i, name in enumerate(("w_qs", "w_ks", "w_vs", "fc"))}
+    return {"Dense_0": _inv_dense(sd, p + ".spectral.0.fc"),
+            "Dense_1": _inv_dense(sd, p + ".spectral.3.fc"),
+            "Conv1dGLU_0": {"Conv1d_0": _inv_conv(sd, p + ".temporal.0.conv1.conv")},
+            "Conv1dGLU_1": {"Conv1d_0": _inv_conv(sd, p + ".temporal.1.conv1.conv")},
+            "RelPosMultiHeadAttention_0": att,
+            "Dense_2": _inv_dense(sd, p + ".fc.fc")}
+
+
+def _inv_posterior_audio_encoder(sd, p: str) -> dict:
+    n_down = len(_indices(sd, p + ".downs."))
+    tree = {"Conv1d_0": _inv_conv(sd, p + ".down_pre")}
+    for i in range(n_down):
+        tree[f"Conv1d_{i + 1}"] = _inv_conv(sd, f"{p}.downs.{i}")
+    for k in _indices(sd, p + ".resblocks."):
+        tree[f"ResBlock1_{k}"] = _inv_resblock1(sd, f"{p}.resblocks.{k}")
+    tree["AntiAliasedActivation_0"] = {"SnakeBeta_0": {
+        "log_alpha": _np(sd[p + ".activation_post.act.alpha"]),
+        "log_beta": _np(sd[p + ".activation_post.act.beta"])}}
+    tree[f"Conv1d_{n_down + 1}"] = _inv_conv(sd, p + ".conv_post")
+    tree[f"Conv1d_{n_down + 2}"] = _inv_conv(sd, p + ".pre")
+    tree["WN_0"] = _inv_wn(sd, p + ".enc")
+    tree[f"Conv1d_{n_down + 3}"] = _inv_conv(sd, p + ".proj")
+    return tree
+
+
+def _inv_vits_mha(sd, p: str) -> dict:
+    tree = {f"Conv1d_{i}": _inv_conv(sd, f"{p}.{name}")
+            for i, name in enumerate(("conv_q", "conv_k", "conv_v", "conv_o"))}
+    for name in ("emb_rel_k", "emb_rel_v"):
+        if f"{p}.{name}" in sd:
+            tree[name] = _np(sd[f"{p}.{name}"])
+    return tree
+
+
+def _inv_vits_encoder(sd, p: str) -> dict:
+    tree = {}
+    ln = lambda q: {"scale": _np(sd[q + ".gamma"]), "bias": _np(sd[q + ".beta"])}  # noqa: E731
+    for i in _indices(sd, p + ".attn_layers."):
+        tree[f"RelPosMultiHeadAttention_{i}"] = _inv_vits_mha(sd, f"{p}.attn_layers.{i}")
+        tree[f"LayerNorm_{2 * i}"] = ln(f"{p}.norm_layers_1.{i}")
+        tree[f"ConvFFN_{i}"] = {"Conv1d_0": _inv_conv(sd, f"{p}.ffn_layers.{i}.conv_1"),
+                                "Conv1d_1": _inv_conv(sd, f"{p}.ffn_layers.{i}.conv_2")}
+        tree[f"LayerNorm_{2 * i + 1}"] = ln(f"{p}.norm_layers_2.{i}")
+    return tree
+
+
+def _inv_text_encoder(sd, p: str) -> dict:
+    return {"TransformerEncoder_0": _inv_vits_encoder(sd, p + ".encoder_ssl"),
+            "Embed_0": {"embedding": _np(sd[p + ".text_embedding.weight"])},
+            "TransformerEncoder_1": _inv_vits_encoder(sd, p + ".encoder_text"),
+            "MRTE_0": {"Conv1d_0": _inv_conv(sd, p + ".mrte.c_pre"),
+                       "Conv1d_1": _inv_conv(sd, p + ".mrte.text_pre"),
+                       "RelPosMultiHeadAttention_0": _inv_vits_mha(
+                           sd, p + ".mrte.cross_attention"),
+                       "Conv1d_2": _inv_conv(sd, p + ".mrte.c_post")},
+            "TransformerEncoder_2": _inv_vits_encoder(sd, p + ".encoder2"),
+            "Conv1d_0": _inv_conv(sd, p + ".proj")}
+
+
+def _inv_coupling_flow(sd, p: str) -> dict:
+    return {f"ResidualCouplingLayer_{i}": {
+        "Conv1d_0": _inv_conv(sd, f"{p}.flows.{2 * i}.pre"),
+        "WN_0": _inv_wn(sd, f"{p}.flows.{2 * i}.enc"),
+        "Dense_0": _inv_dense_as_conv1x1(sd, f"{p}.flows.{2 * i}.post")}
+        for i in _indices(sd, p + ".flows.")}  # flows.{2i + 1}, the flips, hold no keys
+
+
+def _inv_conv_transpose(sd, p: str) -> dict:
+    """The inverse of _conv_transpose, a relayout."""
+    tree = {"kernel": _np(sd[p + ".weight_v"]).transpose(2, 0, 1),
+            "g": _np(sd[p + ".weight_g"]).reshape(-1)}
+    return _inv_bias(sd, p, tree)
+
+
+def _inv_generator(sd, p: str) -> dict:
+    tree = {"Conv1d_0": _inv_conv(sd, p + ".conv_pre"), "Conv1d_1": _inv_conv(sd, p + ".cond"),
+            "Conv1d_2": _inv_conv(sd, p + ".conv_post")}
+    for i in _indices(sd, p + ".ups."):
+        tree[f"ConvTranspose1d_{i}"] = _inv_conv_transpose(sd, f"{p}.ups.{i}")
+    for k in _indices(sd, p + ".resblocks."):
+        tree[f"ResBlock1_{k}"] = _inv_resblock1(sd, f"{p}.resblocks.{k}")
+    return tree
+
+
+def synthesizer_trn_variables(sd) -> dict:
+    """ttts_tpu_torch SynthesizerTrn state dict (serving or training) → JAX
+    SynthesizerTrn variables {'params', 'codebook'}; the inverse of
+    synthesizer_trn_state_dict (enc_q when the state dict has it)."""
+    params = {"ref_enc": _inv_mel_style_encoder(sd, "ref_enc"),
+              "enc_p": _inv_posterior_audio_encoder(sd, "enc_p"),
+              "enc_p_2": _inv_text_encoder(sd, "enc_p_2"),
+              "flow": _inv_coupling_flow(sd, "flow"),
+              "dec": _inv_generator(sd, "dec"),
+              "proj": _inv_conv(sd, "proj")}
+    if any(k.startswith("enc_q.") for k in sd):
+        params["enc_q"] = _inv_posterior_audio_encoder(sd, "enc_q")
+    layers = _indices(sd, "quantizer.vq.layers.")
+    cb = lambda k: np.stack([_np(sd[f"quantizer.vq.layers.{i}._codebook.{k}"])  # noqa: E731
+                             for i in layers])
+    state = {"embed": cb("embed"), "embed_avg": cb("embed_avg"),
+             "cluster_size": cb("cluster_size"),
+             "inited": np.asarray(bool(_np(sd["quantizer.vq.layers.0._codebook.inited"])[0]))}
+    return {"params": params, "codebook": {"quantizer": {"state": state}}}
+
+
+def discriminator_variables(sd) -> dict:
+    """ttts_tpu_torch MultiPeriodDiscriminator state dict → JAX
+    MultiPeriodDiscriminator variables; the inverse of
+    discriminator_state_dict."""
+    pre = "discriminators.0"
+    ds = {f"Conv1d_{j}": _inv_conv(sd, f"{pre}.convs.{j}")
+          for j in _indices(sd, pre + ".convs.")}
+    ds[f"Conv1d_{len(ds)}"] = _inv_conv(sd, pre + ".conv_post")
+    params = {"DiscriminatorS_0": ds}
+    for i in range(1, len(_indices(sd, "discriminators."))):
+        pre, dp = f"discriminators.{i}", {}
+        names = [f"{pre}.convs.{j}" for j in _indices(sd, pre + ".convs.")] + [pre + ".conv_post"]
+        for j, name in enumerate(names):
+            dp[f"Conv_{j}"] = _inv_bias(sd, name, {
+                "kernel": _np(sd[name + ".weight_v"]).transpose(2, 3, 1, 0)})
+            scale = _np(sd[name + ".weight_g"]).reshape(-1)
+            dp[f"WeightNorm_{j}"] = {f"Conv_{j}/kernel/scale": scale}
+        params[f"DiscriminatorP_{i - 1}"] = dp
+    return {"params": params}
+
+
+VARIABLES_FNS = {"gpt": unified_voice_variables, "diffusion": aa_diffusion_variables,
+                 "vqvae": synthesizer_trn_variables, "discriminator": discriminator_variables}

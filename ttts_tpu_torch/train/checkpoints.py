@@ -96,6 +96,8 @@ def export_release(params: Any, path: str | pathlib.Path, drop_prefixes=("enc_q"
 
 def export_model(name: str, state_dict, path: str | pathlib.Path,
                  config: Optional[dict] = None):
-    """One of this package's state dicts ("gpt" or "diffusion") → a release
-    `.npz` of the JAX variables (porting.VARIABLES_FNS)."""
+    """One of this package's state dicts ("gpt", "diffusion", "vqvae" or
+    "discriminator") → a release `.npz` of the JAX variables
+    (porting.VARIABLES_FNS); the codec's enc_q is dropped, as the JAX
+    package's export drops it."""
     export_release(porting.VARIABLES_FNS[name](state_dict), path, config=config)

@@ -1,16 +1,18 @@
-"""Training entry points of the GPT and the diffusion decoder, port of
-ttts_tpu/train/mains.py (46-132, 133-185, 215-259, 426-464):
+"""Training entry points of the GPT, the diffusion decoder and the codec
+GAN, port of ttts_tpu/train/mains.py (46-132, 133-185, 215-259, 296-464):
 
   python -m ttts_tpu_torch.train.mains gpt       --manifest data.jsonl [--config cfg.json]
   python -m ttts_tpu_torch.train.mains diffusion --manifest data.jsonl --gpt-ckpt logs/ckpt
+  python -m ttts_tpu_torch.train.mains vqvae     --manifest wavs.jsonl
 
 --logs sets the logs folder (checkpoints under <logs>/ckpt, scalars under
 <logs>/tb, train.log). --gpt-ckpt is a checkpoint directory of this package's
 GPT training or a release `.npz` (export_release). Training runs on the
-card unless --device cpu is given; on the card the forward computes in
-bf16 under autocast over f32 weights (cfg.train.amp), as the JAX package's
-`_amp_dtype` does on an accelerator. vqvae, clvp and classifier training
-are not ported yet (ROADMAP.md queue 1, item 7).
+card unless --device cpu is given; on the card the GPT and diffusion
+forwards compute in bf16 under autocast over f32 weights (cfg.train.amp),
+as the JAX package's `_amp_dtype` does on an accelerator. The codec GAN
+trains in f32, as JAX's train_vqvae does, with TF32 off. clvp and
+classifier training are not ported yet (ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -18,22 +20,29 @@ from __future__ import annotations
 import argparse
 import functools
 import pathlib
+import wave
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ttts_tpu_torch.config import TTTSConfig, default_config, load_config
-from ttts_tpu_torch.data.datasets import DiffusionDataset, GptTtsDataset
+from ttts_tpu_torch.data.datasets import DiffusionDataset, GptTtsDataset, VQGANDataset
 from ttts_tpu_torch.data.loader import DataLoader, EpochLoader
 from ttts_tpu_torch.data.sampler import DistributedBucketSampler
 from ttts_tpu_torch.infer_utils import load_state_dict, prepare_device
 from ttts_tpu_torch.train.checkpoints import CheckpointManager
-from ttts_tpu_torch.train.state import TrainState, make_adamw, with_accumulation
-from ttts_tpu_torch.train.steps import diffusion_train_step, gpt_train_step
+from ttts_tpu_torch.train.state import (
+    GanState,
+    TrainState,
+    make_adamw,
+    make_gan_adam,
+    with_accumulation,
+)
+from ttts_tpu_torch.train.steps import diffusion_train_step, gpt_train_step, vqvae_train_step
 from ttts_tpu_torch.train.trainer import Trainer
 
-NOT_PORTED = ("vqvae", "clvp", "classifier")
+NOT_PORTED = ("clvp", "classifier")
 
 
 def _amp_dtype(cfg: TTTSConfig, device: torch.device) -> Optional[torch.dtype]:
@@ -160,6 +169,92 @@ def train_diffusion(cfg: TTTSConfig, manifest: str, gpt_state_dict: Dict,
     return diffusion_trainer(cfg, manifest, gpt_state_dict, logs_folder, device).train()
 
 
+def make_vqvae_augment_cfg(cfg: TTTSConfig):
+    from ttts_tpu_torch.data.augment import AugmentConfig
+
+    a, t = cfg.audio, cfg.train
+    return AugmentConfig(
+        sampling_rate=a.sampling_rate, win_length=a.win_length, hop_length=a.hop_length,
+        formant_shift=t.formant_shift, pitch_shift=t.pitch_shift, pitch_range=t.pitch_range,
+        q_min=t.q_min, q_max=t.q_max, num_peak=t.num_peak, g_min=t.g_min, g_max=t.g_max)
+
+
+def make_vqvae_loader(cfg: TTTSConfig, ds: VQGANDataset) -> EpochLoader:
+    """The codec GAN's host data path: a header-only length scan →
+    DistributedBucketSampler (0.65-54 s buckets) → the thread-pool
+    DataLoader, with the host formant / pitch warp (`wav_warped`) in the
+    collate only when cfg.train.aug_warp is on and aug_warp_device off.
+    The host warp draws from one generator seeded seed + 17, as JAX's, so
+    a resumed run's host warps start over; the device warp draws from the
+    step key and resumes exactly."""
+    from ttts_tpu_torch.data.audio import wav_frames
+    from ttts_tpu_torch.data.augment import warp_batch_np
+
+    a = cfg.audio
+    lengths = []
+    for r in ds.rows:
+        try:
+            lengths.append(wav_frames(r["path"], target_sr=a.sampling_rate))
+        except (OSError, EOFError, wave.Error):
+            lengths.append(0)
+    aug_cfg = make_vqvae_augment_cfg(cfg)
+    warp_rng = np.random.default_rng(cfg.train.seed + 17)
+
+    def collate(items):
+        b = ds.collate(items)
+        if b is not None and cfg.train.aug_warp and not cfg.train.aug_warp_device:
+            b = dict(b, wav_warped=warp_batch_np(warp_rng, b["wav"][..., 0], aug_cfg)[..., None])
+        return b
+
+    sampler = DistributedBucketSampler(
+        lengths, cfg.train.batch_size,
+        boundaries=[int(s * a.sampling_rate) for s in (0.65, 2, 4, 8, 16, 32, 54)],
+        seed=cfg.train.seed)
+
+    def make(epoch: int):
+        sampler.set_epoch(epoch)
+        return DataLoader(ds, list(iter(sampler)), collate)
+
+    return EpochLoader(make)
+
+
+def vqvae_trainer(cfg: TTTSConfig, manifest: str, logs_folder: Optional[str] = None,
+                  device="cuda") -> Trainer:
+    """The codec GAN's Trainer (a GanState: SynthesizerTrn built for
+    training with its codebook waiting for the k-means init, and the
+    MultiPeriodDiscriminator, each with make_gan_adam), resumed from its
+    latest checkpoint if any. f32 throughout; no accumulation multiplier,
+    as in JAX (the reference's codec trainer steps once per batch)."""
+    from ttts_tpu_torch.models.discriminator import MultiPeriodDiscriminator
+    from ttts_tpu_torch.models.vqvae import SynthesizerTrn
+
+    device = prepare_device(device)
+    a, t = cfg.audio, cfg.train
+    ds = VQGANDataset(manifest, sample_rate=a.sampling_rate, hop_length=a.hop_length)
+    data = make_vqvae_loader(cfg, ds)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(t.seed)
+        gen = SynthesizerTrn(cfg.vqvae, spec_channels=a.filter_length // 2 + 1,
+                             segment_frames=t.segment_size // a.hop_length, for_training=True)
+        disc = MultiPeriodDiscriminator()
+    gen, disc = gen.to(device), disc.to(device)
+    gan = lambda ps: make_gan_adam(ps, t.lr, decay=t.lr_decay)  # noqa: E731
+    state = GanState(TrainState.create(gen, gan), TrainState.create(disc, gan))
+    aug_cfg = make_vqvae_augment_cfg(cfg)
+    step = functools.partial(vqvae_train_step, audio_cfg=a, c_mel=t.c_mel, c_kl=t.c_kl,
+                             augment_cfg=aug_cfg,
+                             device_warp=t.aug_warp and t.aug_warp_device)
+    trainer = Trainer(step, state, data, logs_folder or t.logs_folder, t.train_steps,
+                      t.save_freq, t.keep_ckpts, seed=t.seed, mesh=cfg.mesh, device=device)
+    trainer.maybe_resume()
+    return trainer
+
+
+def train_vqvae(cfg: TTTSConfig, manifest: str, logs_folder: Optional[str] = None,
+                device="cuda") -> GanState:
+    return vqvae_trainer(cfg, manifest, logs_folder, device).train()
+
+
 def load_gpt_state_dict(path: str | pathlib.Path) -> Dict:
     """The GPT weights of a checkpoint directory of this package's training
     (its `ckpt` folder or the logs folder holding it) or of a release
@@ -178,7 +273,7 @@ def load_gpt_state_dict(path: str | pathlib.Path) -> Dict:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("model", choices=["gpt", "diffusion", *NOT_PORTED])
+    p.add_argument("model", choices=["gpt", "diffusion", "vqvae", *NOT_PORTED])
     p.add_argument("--config", default=None)
     p.add_argument("--manifest", default=None)
     p.add_argument("--logs", default=None)
@@ -194,6 +289,8 @@ def main(argv=None):
     cfg = load_config(args.config) if args.config else default_config()
     if args.model == "gpt":
         train_gpt(cfg, args.manifest, args.logs, args.device)
+    elif args.model == "vqvae":
+        train_vqvae(cfg, args.manifest, args.logs, args.device)
     else:
         if not args.gpt_ckpt:
             p.error("--gpt-ckpt required")

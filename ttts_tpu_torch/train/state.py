@@ -14,7 +14,9 @@
 
 Gradients of parameters that took no part in the loss (None) count as
 zeros, as JAX's gradients of an unused parameter are. `ema_update` is the
-shadow-weight EMA. make_gan_adam (the codec GAN) is not ported yet.
+shadow-weight EMA. `make_gan_adam` is the codec GAN's optax.adamw (betas
+(0.8, 0.99), eps 1e-9, weight decay 0.01, lr * decay^count, no clip), and
+`GanState` the paired generator / discriminator state its trainer holds.
 """
 
 from __future__ import annotations
@@ -33,6 +35,16 @@ def warmup_constant_schedule(lr: float, warmup_steps: int) -> Callable[[int], np
 
     def fn(count: int) -> np.float32:
         return np.float32(lr) * np.minimum(np.float32(1.0), np.float32(count + 1) / w)
+
+    return fn
+
+
+def exponential_decay_schedule(lr: float, decay: float) -> Callable[[int], np.float32]:
+    """count → lr * decay^count in float32 (the vqvae ExponentialLR, applied
+    per update with a gentler decay, as the JAX package applies it)."""
+
+    def fn(count: int) -> np.float32:
+        return np.float32(lr) * np.float32(decay) ** np.float32(count)
 
     return fn
 
@@ -62,13 +74,16 @@ class AdamW:
     the clip by hand, the update by torch.optim.AdamW (foreach), whose
     arithmetic is optax's (decoupled decay times the learning rate, bias-
     corrected moments, eps outside the square root), with its learning rate
-    set from the warmup schedule before each update."""
+    set from the schedule before each update: the warmup schedule, or
+    `schedule` (count → lr) when given. grad_clip None: no clip (a bare
+    optax.adamw)."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr: float, warmup_steps: int = 500,
-                 betas=(0.9, 0.96), weight_decay: float = 0.01, grad_clip: float = 1.0,
-                 eps: float = 1e-8):
+                 betas=(0.9, 0.96), weight_decay: float = 0.01,
+                 grad_clip: Optional[float] = 1.0, eps: float = 1e-8,
+                 schedule: Optional[Callable[[int], np.float32]] = None):
         self.params = list(params)
-        self.schedule = warmup_constant_schedule(lr, warmup_steps)
+        self.schedule = schedule or warmup_constant_schedule(lr, warmup_steps)
         self.grad_clip = grad_clip
         self.opt = torch.optim.AdamW(self.params, lr=lr, betas=tuple(betas), eps=eps,
                                      weight_decay=weight_decay, foreach=True)
@@ -81,7 +96,9 @@ class AdamW:
         global norm, if known); True (the chain fires on every call)."""
         grads = [torch.zeros_like(p) if g is None else g.to(p.dtype)
                  for p, g in zip(self.params, grads)]
-        for p, g in zip(self.params, clip_by_global_norm(grads, self.grad_clip, norm)):
+        if self.grad_clip is not None:
+            grads = clip_by_global_norm(grads, self.grad_clip, norm)
+        for p, g in zip(self.params, grads):
             p.grad = g
         for group in self.opt.param_groups:
             group["lr"] = float(self.schedule(self.count))
@@ -146,6 +163,14 @@ def make_adamw(params, lr: float, warmup_steps: int = 500, betas=(0.9, 0.96),
     return AdamW(params, lr, warmup_steps, betas, weight_decay, grad_clip, eps)
 
 
+def make_gan_adam(params, lr: float, betas=(0.8, 0.99), eps: float = 1e-9,
+                  decay: float = 0.999875) -> AdamW:
+    """AdamW for the codec GAN (vqvae/config.json train block): lr *
+    decay^count, weight decay 0.01, no clip."""
+    return AdamW(params, lr, betas=betas, weight_decay=0.01, grad_clip=None, eps=eps,
+                 schedule=exponential_decay_schedule(lr, decay))
+
+
 def with_accumulation(tx: AdamW, accumulate_num: int):
     """Gradient accumulation over `accumulate_num` micro-steps: `tx` inside
     MultiSteps when that is above 1, else `tx`."""
@@ -195,3 +220,25 @@ class TrainState:
         dev = self.params[0].device
         self.ema = None if sd["ema"] is None else [t.to(dev) for t in sd["ema"]]
         self.step = int(sd["step"])
+
+
+@dataclass
+class GanState:
+    """The codec GAN's paired state (the reference's G_ / D_ checkpoint
+    pairs): the generator's TrainState, whose model holds the codebook
+    buffers, and the discriminator's. `params` lists both models'
+    parameters (the Trainer reads their device)."""
+
+    g: TrainState
+    d: TrainState
+
+    @property
+    def params(self) -> List[torch.Tensor]:
+        return self.g.params + self.d.params
+
+    def state_dict(self) -> Dict:
+        return {"g": self.g.state_dict(), "d": self.d.state_dict()}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        self.g.load_state_dict(sd["g"])
+        self.d.load_state_dict(sd["d"])

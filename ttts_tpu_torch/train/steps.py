@@ -1,20 +1,27 @@
-"""Train steps of the GPT and the diffusion decoder, port of
-ttts_tpu/train/steps.py:42-149.
+"""Train steps of the GPT, the diffusion decoder and the codec GAN, port of
+ttts_tpu/train/steps.py:42-301.
 
   - GPT: loss = 0.01 * text CE + 1.0 * mel CE (ttts/gpt/train.py:89-136).
   - Diffusion: the frozen GPT's latent (no grad, eval mode: on the card its
     attention is the causal flash kernel), x_start = the normalised mel,
     uniform timesteps, MSE + VLB (ttts/diffusion/train.py:146-202).
+  - VQ-VAE GAN (ttts/vqvae/train.py:313-459): the device formant / pitch
+    warp and the parametric EQ, the linear spectrograms, ONE generator
+    forward (its quantizer searches through the VQ kernel on the card and
+    updates the EMA / k-means codebook), the discriminator step on the
+    detached fake, then the generator step (mel L1 x 45, KL x 1, feature
+    matching, adversarial, commit) through the *updated* discriminator; in
+    f32, without a non-finite skip, as JAX's step.
 
 A step is (state, batch, key) → metrics, with `state` a TrainState updated
 in place and `key` an integer seed. Every draw of a step comes from the
 key: t, the noise, the unconditioned rows and the layer-drop choices from
-explicit torch.Generators (`diffusion_draws`; tests inject the JAX
-package's draws instead), dropout from the global generators reseeded
-inside the step (torch.random.fork_rng), so a step repeats exactly given
-its key. `amp_dtype` (bf16 on the card) runs the forward under autocast
-over the f32 weights. The VQ-VAE GAN, CLVP and classifier steps are not
-ported yet.
+explicit torch.Generators (`diffusion_draws`, `vqvae_draws`; tests inject
+the JAX package's draws instead), dropout from the global generators
+reseeded inside the step (torch.random.fork_rng), so a step repeats exactly
+given its key. `amp_dtype` (bf16 on the card) runs the GPT and diffusion
+forwards under autocast over the f32 weights. The CLVP and classifier steps
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,8 +31,18 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ttts_tpu_torch.data.augment import apply_peq, sample_params, warp_batch_device, warp_draws
 from ttts_tpu_torch.models.diffusion_net import normalize_tacotron_mel
-from ttts_tpu_torch.train.state import TrainState, ema_update, global_norm
+from ttts_tpu_torch.models.losses import (
+    discriminator_loss,
+    feature_loss,
+    generator_loss,
+    kl_loss,
+)
+from ttts_tpu_torch.models.quantize import vq_draws
+from ttts_tpu_torch.models.vqvae import slice_segments
+from ttts_tpu_torch.ops.mel import vits_mel_spectrogram, vits_spectrogram
+from ttts_tpu_torch.train.state import GanState, TrainState, ema_update, global_norm
 
 
 optax_global_norm = global_norm  # the JAX package's name
@@ -159,3 +176,112 @@ def diffusion_train_step(state: TrainState, batch, key: int, diffuser, gpt_model
     norm, finite, _ = apply_gradients_safe(state, _grads(loss, state.params))
     return {"loss": loss.detach(), "mse": mse.detach(), "vb": vb.detach(),
             "grad_norm": norm, "nonfinite_skipped": 0.0 if finite else 1.0}
+
+
+# ------------------------------------------------------------------- VQ-VAE
+
+
+def vqvae_draws(key: int, batch, model, hop_length: int, augment_cfg=None,
+                device_warp: bool = False) -> Dict:
+    """A GAN step's draws from `key`: enc_q's noise (B, T, inter_channels)
+    on the batch's device, the slice starts `ids_slice` (B,) = floor(u *
+    (max(len - segment_frames, 0) + 1)), the quantizer's k-means and expiry
+    rows (`vq`, quantize.vq_draws over B * T/2 rows), and with `augment_cfg`
+    the EQ's parameters (`peq`, augment.sample_params) and, with
+    `device_warp`, the warp's factors (`warp`, augment.warp_draws). T =
+    wav samples / hop_length; `model` the SynthesizerTrn."""
+    g = torch.Generator().manual_seed(key % (2 ** 63))
+    wav, dev = batch["wav"], batch["wav"].device
+    b, frames = wav.shape[0], wav.shape[1] // hop_length
+    c = model.cfg
+    u = torch.rand(b, generator=g)
+    lengths = batch["spec_lengths"].cpu()
+    out = {"ids_slice": (u * ((lengths - model.segment_frames).clamp_min(0) + 1)).long(),
+           "vq": vq_draws(b * (frames // 2), c.n_q, c.codebook_bins, c.kmeans_seeding, g)}
+    if augment_cfg is not None:
+        out["peq"] = sample_params(g, b, augment_cfg)
+        if device_warp:
+            out["warp"] = warp_draws(g, b, augment_cfg)
+    noise_seed = int(torch.randint(2 ** 62, (1,), generator=g))
+    gd = torch.Generator(dev).manual_seed(noise_seed)
+    out["noise"] = torch.randn((b, frames, c.inter_channels), generator=gd, device=dev)
+    return out
+
+
+def _spec(wav: torch.Tensor, a) -> torch.Tensor:
+    """(B, T*hop, 1) → the linear spectrogram (B, T, filter_length//2 + 1)."""
+    return vits_spectrogram(wav[..., 0], a.filter_length, a.hop_length,
+                            a.win_length).transpose(1, 2)
+
+
+@torch.no_grad()
+def vqvae_inputs(batch, audio_cfg, draws, augment_cfg=None, device_warp: bool = False):
+    """The GAN step's inputs (steps.py:181-216): wav_aug (the host warp's
+    `wav_warped`, or the device warp when `device_warp`, or wav; then the
+    EQ when `augment_cfg`), spec and spec_aug, unless the batch holds them."""
+    batch = dict(batch)
+    if "wav_aug" not in batch:
+        base = batch.pop("wav_warped", None)
+        if base is None:
+            base = batch["wav"]
+            if device_warp and augment_cfg is not None:
+                base = warp_batch_device(base[..., 0], draws["warp"], augment_cfg)[..., None]
+        if augment_cfg is not None:
+            p = draws["peq"]
+            base = apply_peq(base[..., 0], p["quality_power"], p["gain"], augment_cfg)[..., None]
+        batch["wav_aug"] = base
+    for k, w in (("spec", "wav"), ("spec_aug", "wav_aug")):
+        if k not in batch:
+            batch[k] = _spec(batch[w], audio_cfg)
+    return batch
+
+
+def _mel(wav: torch.Tensor, a) -> torch.Tensor:
+    return vits_mel_spectrogram(wav[..., 0], a.filter_length, a.n_mel_channels,
+                                a.sampling_rate, a.hop_length, a.win_length, a.mel_fmin,
+                                a.mel_fmax)
+
+
+def vqvae_train_step(state: GanState, batch, key: int, audio_cfg, c_mel: float = 45.0,
+                     c_kl: float = 1.0, augment_cfg=None, device_warp: bool = False,
+                     draws=None):
+    """One alternating D / G step (vqvae/train.py:313-406) on state.g (the
+    SynthesizerTrn built for training) and state.d (the MPD), both updated
+    in place. batch: wav (B, T*hop, 1), spec_lengths, text, text_lengths
+    (+ optionally wav_warped, or wav_aug / spec / spec_aug). `draws`
+    (vqvae_draws' keys) replaces the key's draws. → the seven losses."""
+    gen, disc = state.g.model.train(), state.d.model.train()
+    dev = _device(gen)
+    a, hop, seg = audio_cfg, audio_cfg.hop_length, gen.segment_frames
+    if draws is None:
+        draws = vqvae_draws(key, batch, gen, hop, augment_cfg, device_warp)
+    batch = vqvae_inputs(batch, a, draws, augment_cfg, device_warp)
+    # one generator forward, shared by the D and G steps
+    with seeded(key, dev):
+        y_hat, commit, ids_slice, y_mask, stats, _ = gen(
+            batch["wav"], batch["wav_aug"], batch["spec"], batch["spec_aug"],
+            batch["spec_lengths"], batch["text"], batch["text_lengths"],
+            noise=draws["noise"], ids_slice=draws["ids_slice"], vq_draws=draws["vq"])
+    y_real = slice_segments(batch["wav"], ids_slice * hop, seg * hop)
+    # discriminator step, the fake detached
+    yr, yg, _, _ = disc(y_real, y_hat.detach())
+    loss_disc, _, _ = discriminator_loss(yr, yg)
+    state.d.opt.update(_grads(loss_disc, state.d.params))
+    state.d.step += 1
+    # generator step through the updated discriminator; the gradients of
+    # G's parameters only (D gathers none from this loss)
+    z, z_p, m_p, logs_p, m_q, logs_q = stats
+    with torch.no_grad():
+        mel_real = _mel(y_real, a)
+    _, yg, fr, fg = disc(y_real, y_hat)
+    loss_mel = torch.mean(torch.abs(mel_real - _mel(y_hat, a))) * c_mel
+    loss_kl = kl_loss(z_p, logs_q, m_p, logs_p, y_mask) * c_kl
+    loss_fm = feature_loss(fr, fg)
+    loss_adv, _ = generator_loss(yg)
+    loss_gen_all = loss_mel + loss_kl + loss_fm + loss_adv + commit
+    state.g.opt.update(_grads(loss_gen_all, state.g.params))
+    state.g.step += 1
+    return {k: v.detach() for k, v in (
+        ("loss_disc", loss_disc), ("loss_gen_all", loss_gen_all), ("loss_mel", loss_mel),
+        ("loss_kl", loss_kl), ("loss_fm", loss_fm), ("loss_adv", loss_adv),
+        ("commit_loss", commit))}

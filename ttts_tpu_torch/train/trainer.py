@@ -5,6 +5,10 @@ checkpoint) after a run of non-finite steps, and flush a checkpoint on
 SIGTERM. The JAX trainer's evaluation hooks (train/eval_hooks.py) are not
 ported yet.
 
+The state is a TrainState, or the codec GAN's GanState (generator and
+discriminator, checkpointed together); the Trainer reads only its
+state_dict, load_state_dict and its parameters' device.
+
 It trains on one device: a mesh asking for more than one raises (multi-GPU
 is ROADMAP.md queue 1, item 9). A resumed run repeats the uninterrupted
 run: its checkpoint holds the key generator's state and, for a data source

@@ -78,8 +78,8 @@ Phases, one printed line each, any failure raising (non-zero exit):
       step and only the frozen GPT's causal attention (one per layer) by a
       diffusion step; median steady step ms, tokens/s and mel frames/s,
       peak memory and the device's busy share of 3 steps under
-      torch.profiler; the causal kernel against its plain version at the
-      largest shape the diffusion step gave it (ATTN_TOL; a row of the
+      torch.profiler; the causal kernel against its plain version at each
+      shape the diffusion step gave it (ATTN_TOL; the largest a row of the
       kernel table); the card's bf16 step against the port's f32 CPU step
       at the same width, weights, 4 rows and draws (TRAIN_TOL: the frozen
       GPT's latent, losses, the global grad norm, per-tensor gradient
@@ -100,7 +100,29 @@ Phases, one printed line each, any failure raising (non-zero exit):
       largest shape the steps gave it (a row of its own in the kernel
       table) beside cuBLAS's x @ cb.T; one step on the card against the f32
       CPU step at the same weights (the trained codebook), 2 rows and draws,
-      dropout off (GAN_TOL: codes, losses, G and D grad norms and cosines).
+      dropout off (GAN_TOL: codes, losses, G and D grad norms and cosines);
+  (m) the rest of the five-stage recipe at default_config() widths, through
+      the port's CLIs and trainers: 12 seeded 32 kHz recordings of three
+      2-5 s synthetic voices between 0.8 s silences through `pipeline vad`,
+      `asr` (a transcribe hook the phase writes), `bpe-corpus`, then `mel`
+      and `vq` on the card (vq through phase (l)'s last checkpoint: one VQ
+      launch a clip, its plain version never; clip 0's codes equal to the
+      f32 CPU path's, its mel within RECIPE_TOL); `train.mains clvp`
+      (768 wide, 20 + 20 layers, bf16 autocast) for 8 steps of batch 32
+      with a checkpoint at 4 and a resume from it, no kernel launched, step
+      time, memory and busy share, the card's step against the f32 CPU step
+      (4 rows, dropout off; RECIPE_TOL, shown to refuse the pooling and
+      InfoNCE left under bf16 autocast), the export served by
+      TextToSpeech.from_checkpoints(clvp=...); `train.mains classifier` for
+      8 steps on clean and noise lists of the clips, `misc classify` with its
+      export and `pipeline filter-noise`; make_diffusion_eval_fn through a
+      diffusion Trainer with eval_freq 1 on phase (k)'s denoiser and frozen
+      GPT (50 DPM++(2M) steps: each trunk kernel launched as often as its
+      call sites were called, the causal kernel once per GPT layer; each of
+      the three against its plain version at every shape the hook gave it,
+      the largest a `<kernel>_eval_hook` row of the kernel table; its ms),
+      and its 10-step mel and waveform against the f32 CPU hook's with shared
+      noise.
 The last two lines are the kernel table as JSON and then
 {"ok": true, "device": {...}}. Imports no JAX; needs a CUDA card.
 """
@@ -110,8 +132,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -414,20 +439,8 @@ def _check_attention(g, rows):
                                   (2, 129, 8, 64), CTX_SHAPE)]
     shapes += [(g, s) for s in ((1, 94, 16, 32), (1, 126, 8, 64), (1, 501, 8, 64),
                                 (2, 1024, 16, 32), (2, 1600, 16, 32))]
-    for gen, (b, t, h, d) in shapes:
-        qkv = torch.randn(b, t, h, 3 * d, generator=gen, device="cuda").to(bf)
-        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
-        strip = torch.randn(h, 2 * t - 1, generator=gen, device="cuda")
-        got, want = fn(q, k, v, strip), flash_attention_plain(q, k, v, strip)
-        torch.cuda.synchronize()
-        # library: SDPA with the (H, T, T) bias built beforehand (not timed)
-        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-        mask = toeplitz_bias(strip, t).to(bf)[None]
-        _timed(rows, "flash_attention_bias", f"B={b} T={t} H={h} D={d} bf16",
-               compare(got, want), "rel_l2", ATTN_TOL,
-               partial(fn, q, k, v, strip), partial(flash_attention_plain, q, k, v, strip),
-               partial(sdpa, qt, kt, vt, attn_mask=mask),
-               _attention_work(b, t, h, d, True, False))
+    for gen, shape in shapes:
+        _hold_bias(rows, gen, shape)
     # no-bias mode: one exact 64-key tile, a last tile of one key (T=65), a
     # head width of 32 over three tiles (the ring's stages refilled), then
     # CLVP's shapes: separate (B, T, H, D) tensors, as the rotary embedding
@@ -463,20 +476,49 @@ def _check_attention(g, rows):
                partial(flash_attention_plain, q, k, v, strip, causal=True),
                partial(sdpa, qt, kt, vt, attn_mask=mask),
                _attention_work(b, t, h, d, True, True))
-    for b, t, h, d in ((1, 65, 8, 64), (2, 129, 4, 32), (2, 100, 8, 64), (4, 163, 8, 64),
-                       (1, 436, 8, 64)):
-        qkv = torch.randn(b, t, 3 * h * d, generator=g, device="cuda").to(bf)
-        q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, t, h, d) for i in range(3))
-        got = fn(q, k, v, causal=True)
-        want = flash_attention_plain(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-        _timed(rows, "flash_attention_causal", f"B={b} T={t} H={h} D={d} bf16",
-               compare(got, want), "rel_l2", ATTN_TOL,
-               partial(fn, q, k, v, causal=True),
-               partial(flash_attention_plain, q, k, v, causal=True),
-               partial(sdpa, qt, kt, vt, is_causal=True),
-               _attention_work(b, t, h, d, False, True))
+    for shape in ((1, 65, 8, 64), (2, 129, 4, 32), (2, 100, 8, 64), (4, 163, 8, 64),
+                  (1, 436, 8, 64)):
+        _hold_causal(rows, g, shape)
+
+
+def _hold_bias(rows, gen, shape, name: str = "flash_attention_bias", note: str = "") -> None:
+    """The bias kernel against its plain version at `shape` (B, T, H, D), on
+    strided q/k/v views of one fused per-head [q; k; v] tensor, as the
+    diffusion net passes them, and a random (H, 2T - 1) strip; a row `name`."""
+    from ttts_tpu_torch.ops.cuda.attention import flash_attention_plain, toeplitz_bias
+
+    fn, bf, (b, t, h, d) = wrapper("flash_attention_bias"), torch.bfloat16, shape
+    qkv = torch.randn(b, t, h, 3 * d, generator=gen, device="cuda").to(bf)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    strip = torch.randn(h, 2 * t - 1, generator=gen, device="cuda")
+    got, want = fn(q, k, v, strip), flash_attention_plain(q, k, v, strip)
+    torch.cuda.synchronize()
+    # library: SDPA with the (H, T, T) bias built beforehand (not timed)
+    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+    mask = toeplitz_bias(strip, t).to(bf)[None]
+    _timed(rows, name, f"B={b} T={t} H={h} D={d} bf16{note}", compare(got, want), "rel_l2",
+           ATTN_TOL, partial(fn, q, k, v, strip), partial(flash_attention_plain, q, k, v, strip),
+           partial(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
+                   attn_mask=mask), _attention_work(b, t, h, d, True, False))
+
+
+def _hold_causal(rows, gen, shape, name: str = "flash_attention_causal",
+                 note: str = "") -> None:
+    """The causal kernel against its plain version at `shape` (B, T, H, D),
+    as views of the GPT's fused [q; k; v] projection; a row `name`."""
+    from ttts_tpu_torch.ops.cuda.attention import flash_attention_plain
+
+    fn, (b, t, h, d) = wrapper("flash_attention_causal"), shape
+    qkv = torch.randn(b, t, 3 * h * d, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, t, h, d) for i in range(3))
+    got, want = fn(q, k, v, causal=True), flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+    _timed(rows, name, f"B={b} T={t} H={h} D={d} bf16{note}", compare(got, want), "rel_l2",
+           ATTN_TOL, partial(fn, q, k, v, causal=True),
+           partial(flash_attention_plain, q, k, v, causal=True),
+           partial(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
+                   is_causal=True), _attention_work(b, t, h, d, False, True))
 
 
 def _resblock_args(g, b, t, c):
@@ -488,23 +530,28 @@ def _resblock_args(g, b, t, c):
 
 
 def _check_resblock(g, rows):
-    from ttts_tpu_torch.ops.cuda.resblock import fused_scale_shift_resblock_plain
-
-    fn = wrapper("scale_shift_resblock")
-    c = 512
     # T=96: one ragged 128-row tile; B=1 T=1600 (a ragged last tile of 64
     # rows, no neighbouring batch); T=1632 (51 code buckets of 32, a last
     # tile of 96 rows); then the path's buckets, T=1600 the longest
     edge = _edge_generator()
     for gen, (b, t) in ((edge, (2, 96)), (edge, (1, 1600)), (edge, (2, 1632)), (g, (2, 1024)),
                         (g, (2, 1600))):
-        args = _resblock_args(gen, b, t, c)
-        got, want = fn(*args), fused_scale_shift_resblock_plain(*args)
-        torch.cuda.synchronize()
-        _timed(rows, "scale_shift_resblock", f"B={b} T={t} C={c} bf16",
-               compare(got, want), "excess", RES_TOL,
-               partial(fn, *args), partial(fused_scale_shift_resblock_plain, *args), None,
-               (8 * b * t * c * c, 4 * b * t * c + 8 * c * c + 16 * c + 8 * b * c))
+        _hold_resblock(rows, gen, (b, t, 512))
+
+
+def _hold_resblock(rows, gen, shape, name: str = "scale_shift_resblock",
+                   note: str = "") -> None:
+    """The resblock kernel against its plain version at x's `shape` (B, T,
+    C); a row `name`."""
+    from ttts_tpu_torch.ops.cuda.resblock import fused_scale_shift_resblock_plain
+
+    fn, (b, t, c) = wrapper("scale_shift_resblock"), shape
+    args = _resblock_args(gen, b, t, c)
+    got, want = fn(*args), fused_scale_shift_resblock_plain(*args)
+    torch.cuda.synchronize()
+    _timed(rows, name, f"B={b} T={t} C={c} bf16{note}", compare(got, want), "excess", RES_TOL,
+           partial(fn, *args), partial(fused_scale_shift_resblock_plain, *args), None,
+           (8 * b * t * c * c, 4 * b * t * c + 8 * c * c + 16 * c + 8 * b * c))
 
 
 def _gn_qkv_args(g, b, t, c, shift: float = 0.0, scale: float = 1.0):
@@ -603,7 +650,8 @@ def _watch_call_sites(*models):
     """Count the calls of each path kernel's model call sites in `models`,
     apart from the dispatch and the wrappers' counts: forward pre-hooks on
     the GPT blocks (a cached one-row step is a decode, any other call a
-    causal attention), CLVP's unmasked x-transformers attentions, the
+    causal attention), CLVP's unmasked x-transformers attentions without
+    active dropout, the
     diffusion AttentionBlocks (bias, or no bias without relative position
     embeddings; gn_qkv with fused_gn) and ScaleShiftResBlocks, and a wrapper
     around models.quantize.nearest. Returns (counts by kernel, undo)."""
@@ -616,8 +664,9 @@ def _watch_call_sites(*models):
         one_row = cache is not None and args[0].shape[1] == 1
         sites["decode_attention" if one_row else "flash_attention_causal"] += 1
 
-    def clvp_attention(mod, args, kwargs):
-        if (args[1] if len(args) > 1 else kwargs.get("mask")) is None:
+    def clvp_attention(mod, args, kwargs):  # Attention.forward's dispatch rule
+        mask = args[1] if len(args) > 1 else kwargs.get("mask")
+        if mask is None and not (mod.training and mod.dropout):
             sites["flash_attention_nobias"] += 1
 
     def attention_block(mod, args, kwargs):
@@ -1536,7 +1585,7 @@ def _train_data(root, rows: int = 64, seed: int = 0) -> str:
     return str(root / "train.jsonl")
 
 
-def _run_trainer(make, what: str, tokens) -> dict:
+def _run_trainer(make, what: str, tokens, tag: str = "(k)") -> dict:
     """Train the trainer `make()` builds to its end on the card, counting its
     kernel launches; → its history, launches, median step ms after 3
     warm-up steps and throughput: the tokens (frames) of every steady step
@@ -1562,18 +1611,20 @@ def _run_trainer(make, what: str, tokens) -> dict:
     trainer.train()
     launches = counts()
     hist = list(trainer.history)
-    for h in hist:
-        loss, norm = float(h["loss"]), float(h["grad_norm"])
-        if not (math.isfinite(loss) and math.isfinite(norm)) or h["nonfinite_skipped"]:
-            raise RuntimeError(f"(k) {what}: step {h['step']} loss {loss} grad norm {norm}")
+    for h in hist:  # a step without a grad norm (the classifier's) reads 0 there
+        loss, norm = float(h["loss"]), float(h.get("grad_norm", 0.0))
+        if (not (math.isfinite(loss) and math.isfinite(norm))
+                or h.get("nonfinite_skipped", 0.0)):
+            raise RuntimeError(f"{tag} {what}: step {h['step']} loss {loss} grad norm {norm}")
     steady = hist[3:] if len(hist) > 3 else hist
     secs = [h["seconds"] for h in steady]
     ms, spread = float(np.median(secs)) * 1e3, (min(secs) * 1e3, max(secs) * 1e3)
     per_s = sum(work[len(hist) - len(steady):]) / sum(secs)
-    log(f"(k) {what}: steps {start + 1}-{trainer.step}, loss "
-        f"{float(hist[0]['loss']):.4f} -> {float(hist[-1]['loss']):.4f}, grad norms "
-        f"{min(float(h['grad_norm']) for h in hist):.3f}-"
-        f"{max(float(h['grad_norm']) for h in hist):.3f}, all finite | {len(steady)} steady "
+    norms = [float(h["grad_norm"]) for h in hist if "grad_norm" in h]
+    norms = f", grad norms {min(norms):.3f}-{max(norms):.3f}" if norms else ""
+    log(f"{tag} {what}: steps {start + 1}-{trainer.step}, loss "
+        f"{float(hist[0]['loss']):.4f} -> {float(hist[-1]['loss']):.4f}{norms}, all finite | "
+        f"{len(steady)} steady "
         f"steps: median {ms:.2f} ms ({spread[0]:.2f}-{spread[1]:.2f}) | peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return {"trainer": trainer, "launches": launches, "ms": ms, "spread": spread,
@@ -1605,25 +1656,26 @@ def _grad_reading(names, card, cpu) -> dict:
             "norm_cpu": norm(cpu)}
 
 
-def _hold_train(what: str, loss_card, loss_cpu, reading, named) -> None:
+def _hold_train(what: str, loss_card, loss_cpu, reading, named, tol=TRAIN_TOL,
+                tag: str = "(k)") -> None:
     lrel = abs(loss_card - loss_cpu) / abs(loss_cpu)
     nrel = abs(reading["norm_card"] - reading["norm_cpu"]) / reading["norm_cpu"]
     cos = reading["cos"]
     worst = min(cos, key=cos.get)
     named_cos = {n: cos[n] for n in named if n in cos}
-    log(f"(k) {what}, card vs f32 CPU: loss {loss_card:.6f} vs {loss_cpu:.6f}, rel "
-        f"{lrel:.3e} (tol {TRAIN_TOL['loss_rel']}) | grad norm {reading['norm_card']:.5f} vs "
-        f"{reading['norm_cpu']:.5f}, rel {nrel:.3e} (tol {TRAIN_TOL['grad_norm_rel']}) | "
+    log(f"{tag} {what}, card vs f32 CPU: loss {loss_card:.6f} vs {loss_cpu:.6f}, rel "
+        f"{lrel:.3e} (tol {tol['loss_rel']}) | grad norm {reading['norm_card']:.5f} vs "
+        f"{reading['norm_cpu']:.5f}, rel {nrel:.3e} (tol {tol['grad_norm_rel']}) | "
         f"least cosine of {len(cos)} tensors {cos[worst]:.5f} ({worst}; tol "
-        f"{TRAIN_TOL['min_cos']}) | cut gradients {reading['cut'] or 'none'} | zero "
+        f"{tol['min_cos']}) | cut gradients {reading['cut'] or 'none'} | zero "
         f"analytically (below {NOISE} of the norm): {reading['noise'] or 'none'}")
     for n, c in named_cos.items():
-        log(f"(k)   cosine {c:.5f} {n} (tol {TRAIN_TOL['named_cos']})")
-    bad = (reading["cut"] or lrel > TRAIN_TOL["loss_rel"] or nrel > TRAIN_TOL["grad_norm_rel"]
-           or cos[worst] < TRAIN_TOL["min_cos"] or len(named_cos) != len(named)
-           or any(c < TRAIN_TOL["named_cos"] for c in named_cos.values()))
+        log(f"{tag}   cosine {c:.5f} {n} (tol {tol['named_cos']})")
+    bad = (reading["cut"] or lrel > tol["loss_rel"] or nrel > tol["grad_norm_rel"]
+           or cos[worst] < tol["min_cos"] or len(named_cos) != len(named)
+           or any(c < tol["named_cos"] for c in named_cos.values()))
     if bad:
-        raise RuntimeError(f"(k) {what}: the card's step disagrees with the CPU's")
+        raise RuntimeError(f"{tag} {what}: the card's step disagrees with the CPU's")
 
 
 def _compare_gpt(cfg, sd, batch) -> None:
@@ -1707,54 +1759,61 @@ def _compare_diffusion(cfg, gpt_sd, net_sd, batch) -> None:
                 _grad_reading(names, out["card"][1], out["cpu"][1]), named)
 
 
-class _CausalShapes:
-    """Within the block, the (B, T, H, D) of every causal kernel launch (a
-    spy in place of attention.flash_attention, which attention.attend looks
-    up at each call; it shares the wrapper's launch counts)."""
+class _PathShapes:
+    """Within the block, the shapes of every causal, bias-attention and
+    resblock kernel launch, by kernel name: spies in place of
+    attention.flash_attention and resblock.fused_scale_shift_resblock, which
+    the dispatches look up at each call (the launch counts they keep are the
+    wrappers' own)."""
 
     def __enter__(self):
-        from ttts_tpu_torch.ops.cuda import attention
+        from ttts_tpu_torch.ops.cuda import attention, resblock
 
-        self.shapes, self.mod, self.fn = set(), attention, attention.flash_attention
+        self.shapes = {n: set() for n in HELD}
+        self.attn, self.res = attention, resblock
+        attend, fused = self.fns = attention.flash_attention, resblock.fused_scale_shift_resblock
 
-        def spy(q, k, v, strip=None, causal=False):
-            if causal and strip is None:
-                self.shapes.add(tuple(q.shape))
-            return self.fn(q, k, v, strip, causal)
+        def attn_spy(q, k, v, strip=None, causal=False):
+            if causal != (strip is not None):
+                self.shapes["flash_attention_causal" if causal else
+                            "flash_attention_bias"].add(tuple(q.shape))
+            return attend(q, k, v, strip, causal)
 
-        spy.launches = self.fn.launches
-        attention.flash_attention = spy
+        def res_spy(x, *args, **kwargs):
+            self.shapes["scale_shift_resblock"].add(tuple(x.shape))
+            return fused(x, *args, **kwargs)
+
+        attn_spy.launches = attend.launches  # a dict: the same object
+        res_spy.launches = fused.launches  # an int: the wrapper adds to the spy's
+        attention.flash_attention, resblock.fused_scale_shift_resblock = attn_spy, res_spy
         return self
 
     def __exit__(self, *exc):
-        self.mod.flash_attention = self.fn
+        attend, fused = self.fns
+        fused.launches = self.res.fused_scale_shift_resblock.launches
+        self.attn.flash_attention, self.res.fused_scale_shift_resblock = attend, fused
 
 
-def _check_training_attention(rows, shapes) -> None:
-    """The causal kernel against its plain version at the largest shape the
-    diffusion train step gave it (the frozen GPT over a batch of 32), as
-    views of the GPT's fused [q; k; v] projection, held at ATTN_TOL and
-    timed as phase (c) times the other shapes."""
-    from ttts_tpu_torch.ops.cuda.attention import flash_attention_plain
+# the kernels a _PathShapes records, and how each is held at a shape
+HELD = {"flash_attention_bias": _hold_bias, "flash_attention_causal": _hold_causal,
+        "scale_shift_resblock": _hold_resblock}
 
-    b, t, h, d = max(shapes, key=lambda s: (s[0] * s[1], s))
-    fn = wrapper("flash_attention_causal")
+
+def _hold_path_shapes(rows, shapes, tag: str, what: str, suffix: str = "") -> None:
+    """Each kernel a _PathShapes saw launch against its plain version at
+    every shape `what` gave it, at its phase-(c) tolerance, the largest last
+    (its row, `name + suffix`, is the kernel table's), with torch.profiler
+    device time at the largest."""
     g = torch.Generator("cuda").manual_seed(12)
-    qkv = torch.randn(b, t, 3 * h * d, generator=g, device="cuda").to(torch.bfloat16)
-    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, t, h, d) for i in range(3))
-    got, want = fn(q, k, v, causal=True), flash_attention_plain(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-    log(f"(k) causal kernel shapes of the diffusion train step: {sorted(shapes)}")
-    _timed(rows, "flash_attention_causal", f"B={b} T={t} H={h} D={d} bf16 (diffusion train "
-           "step)", compare(got, want), "rel_l2", ATTN_TOL,
-           partial(fn, q, k, v, causal=True),
-           partial(flash_attention_plain, q, k, v, causal=True),
-           partial(torch.nn.functional.scaled_dot_product_attention, qt, kt, vt,
-                   is_causal=True), _attention_work(b, t, h, d, False, True))
-    row = rows[-1]
-    log(f"(k) device time at that shape (torch.profiler): kernel {device_us(row['run'])} | "
-        f"plain {device_us(row['run_plain'])} | SDPA {device_us(row['run_library'])}")
+    for name, seen in shapes.items():
+        for shape in sorted(seen, key=lambda s: (math.prod(s[:2]), s)):
+            HELD[name](rows, g, shape, name + suffix, f" ({what})")
+        if seen:
+            row = rows[-1]
+            lib = device_us(row["run_library"]) if row["run_library"] else "none"
+            log(f"{tag} {name} shapes of the {what}: {sorted(seen)} | device time at "
+                f"{row['shape']} (torch.profiler): kernel {device_us(row['run'])} | plain "
+                f"{device_us(row['run_plain'])} | library {lib}")
 
 
 def _raw_wrappers_refuse_grad() -> None:
@@ -1853,7 +1912,7 @@ def phase_training(card: str, rows: list) -> dict:
             raise RuntimeError("(k) the GPT resume did not continue from step 6 to 12")
         gpt_sd = mains.load_gpt_state_dict(root / "gpt")
         frames = lambda b: float(b["mel_lengths"].sum())  # noqa: E731
-        with _CausalShapes() as causal:
+        with _PathShapes() as seen:
             runs["diffusion"] = _run_trainer(
                 lambda: mains.diffusion_trainer(cfg, manifest, gpt_sd, str(root / "diff"),
                                                 "cuda"),
@@ -1879,7 +1938,7 @@ def phase_training(card: str, rows: list) -> dict:
             per_step[what] = {n: c / run["steps"] for n, c in run["launches"].items()}
             log(f"(k) {what} training launches over {run['steps']} steps: "
                 f"{ {n: c for n, c in run['launches'].items() if c} or 'none'} (as expected)")
-        _check_training_attention(rows, causal.shapes)
+        _hold_path_shapes(rows, seen.shapes, "(k)", "diffusion train step")
         log(f"(k) throughput over the resumed runs' steady steps (every shape met before; "
             f"their tokens over their summed seconds): GPT {again['per_s']:.0f} text+mel "
             f"tokens/s (median step {again['ms']:.2f} ms, {again['spread'][0]:.2f}-"
@@ -1913,7 +1972,8 @@ def phase_training(card: str, rows: list) -> dict:
         log(f"(k) export_release of both trained models -> TextToSpeech.from_checkpoints -> "
             f"tts 'ultra_fast': {wav.size} finite samples | phase (k) "
             f"{time.perf_counter() - t_phase:.1f} s")
-        return per_step
+        return per_step, {"gpt": {k: v.cpu() for k, v in gpt_sd.items()},
+                          "diffusion": {k: v.cpu() for k, v in net_sd.items()}}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2181,14 +2241,15 @@ def _gan_augment_share(cfg, trainer, batch, step_launches: float, card: str) -> 
         f"(torch.profiler) | card {card}")
 
 
-def phase_gan(card: str, rows: list) -> dict:
+def phase_gan(card: str, rows: list, keep=None) -> dict:
     """(l) Codec GAN training at default_config() widths on the card:
     GAN_STEPS steps of batch GAN_BATCH with checkpoints every GAN_SAVE and a
     resume, the VQ kernel launched by every step (2 on the first: the
     k-means init's residual pass, then the search; 1 after) and its plain
     version never; step time, memory, busy share; the VQ kernel at the
     step's largest shape (a row of the kernel table); the card's step
-    against the f32 CPU step."""
+    against the f32 CPU step. `keep`: a directory that receives the last
+    checkpoint (in keep/ckpt), which phase (m)'s `pipeline vq` reads."""
     import pathlib
     import shutil
     import tempfile
@@ -2243,9 +2304,437 @@ def phase_gan(card: str, rows: list) -> dict:
         g_sd = {k: v.cpu() for k, v in tr.state.g.model.state_dict().items()}
         d_sd = {k: v.cpu() for k, v in tr.state.d.model.state_dict().items()}
         _compare_gan(cfg, g_sd, d_sd, pair)
+        if keep is not None:
+            (keep / "ckpt").mkdir(parents=True, exist_ok=True)
+            last = tr.ckpt.path(tr.ckpt.latest_step())
+            shutil.copy2(last, keep / "ckpt" / last.name)
         log(f"(l) phase (l) {time.perf_counter() - t_phase:.1f} s | card {card}")
         return {"launches": first["launches"]["vq_nearest"],
                 "per_step": {n: c / again["steps"] for n, c in again["launches"].items()}}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------- (m)
+
+# Phase (m)'s limits. The mel sidecar: the magnitudes (exp of the log mel)
+# of the card's and the f32 CPU's within "mel_peak" of the sidecar's peak
+# magnitude (tests/test_torch_prepare.py holds the CPU's to JAX's the same
+# way, 1e-5; the card read 4.4e-07). The CLVP step, card (bf16 encoders, f32
+# attention scores, pooling and loss) against the f32 CPU step at the same
+# weights, 4 rows, dropout off, set as TRAIN_TOL was, a few times the largest
+# of three runs' readings on an H100 80GB HBM3 at 700 W (PERF.md): loss
+# 3.2e-05-5.6e-05, grad norm 6.1e-04-1.4e-03, least cosine of 449 tensors
+# 0.99994-0.99995; the pooling and InfoNCE left under bf16 autocast read a
+# loss 1.3e-03 apart. The eval hook's 10-step mel and waveform (bf16 trunk
+# kernels, the causal kernel's latent) against the f32 CPU hook: phase
+# (e)'s limits for the same tail (read 6.3e-03-6.5e-03 and 7.4e-03-7.6e-03).
+RECIPE_TOL = {"mel_peak": 1e-5, "loss_rel": 2e-4, "grad_norm_rel": 5e-3, "min_cos": 0.9998,
+              "named_cos": TRAIN_TOL["named_cos"], "eval mel": 2e-2, "eval wav": 3e-2}
+RECIPE_STEPS, RECIPE_SAVE, RECIPE_BATCH = 8, 4, 32
+# the ASR hook's transcripts and their pinyin (the card's machine may lack
+# pypinyin, as the JAX recipe test's does: the manifest takes the pinyin)
+RECIPE_TEXTS = {"你好世界朋友们": "ni3 hao3 shi4 jie4 peng2 you3 men5",
+                "今天天气真不错": "jin1 tian1 tian1 qi4 zhen1 bu4 cuo4",
+                "欢迎使用语音合成": "huan1 ying2 shi3 yong4 yu3 yin1 he2 cheng2"}
+
+
+def _raw_recordings(root, recordings: int = 12, bursts: int = 3, seed: int = 11) -> None:
+    """Seeded 32 kHz recordings, each `bursts` synthetic voices of 2-5 s
+    between 0.8 s silences (pipeline vad splits each burst into a clip)."""
+    from ttts_tpu_torch.data.audio import save_wav
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    sil = np.zeros(int(0.8 * 32000), np.float32)
+    for r in range(recordings):
+        parts = [sil]
+        for b in range(bursts):
+            parts += [synthetic_voice(float(rng.uniform(2.0, 5.0)), 32000,
+                                      seed=seed + 10 * r + b), sil]
+        save_wav(root / f"rec{r:02d}.wav", np.concatenate(parts), 32000)
+
+
+def _asr(clips, manifest, root) -> None:
+    """`pipeline asr` through a transcribe(path) module the phase writes to
+    `root`, importable only during the call."""
+    from ttts_tpu_torch.data.prepare import pipeline
+
+    texts, name = list(RECIPE_TEXTS), "recipe_chip_asr"
+    (root / f"{name}.py").write_text(
+        f"TEXTS = {texts!r}\n"
+        "def transcribe(path):\n"
+        "    return TEXTS[sum(map(ord, path)) % len(TEXTS)]\n")
+    sys.path.insert(0, str(root))
+    try:
+        pipeline.main(["asr", "--in-dir", str(clips), "--out", str(manifest), "--hook", name])
+    finally:
+        sys.path.remove(str(root))
+        sys.modules.pop(name, None)
+
+
+def _prepare(root, codec_ckpt, card: str) -> dict:
+    """(m) 1: vad → asr → bpe-corpus → mel → vq on the card; VQ launches =
+    clips, plain calls 0; one clip's codes and mel against the f32 CPU's."""
+    from ttts_tpu_torch.config import default_config
+    from ttts_tpu_torch.data.audio import load_wav
+    from ttts_tpu_torch.data.manifest import load_sidecar, read_manifest, write_manifest
+    from ttts_tpu_torch.data.prepare import pipeline
+    from ttts_tpu_torch.ops.cuda import vq
+    from ttts_tpu_torch.ops.mel import acoustic_mel_spectrogram
+
+    t0 = time.perf_counter()
+    _raw_recordings(root / "raw")
+    clips, manifest = root / "clips", root / "data.jsonl"
+    pipeline.main(["vad", "--in-dir", str(root / "raw"), "--out-dir", str(clips)])
+    _asr(clips, manifest, root)
+    rows = [{**r, "text": RECIPE_TEXTS[r["text"]]} for r in read_manifest(manifest)]
+    n = len(rows)
+    if n != len(list(clips.glob("*.wav"))) or n < RECIPE_BATCH:
+        raise RuntimeError(f"(m) vad/asr: {n} rows")
+    write_manifest(manifest, rows)
+    pipeline.main(["bpe-corpus", str(manifest), "--out", str(root / "bpe.txt")])
+    secs = sum(len(load_wav(r["path"])[0]) for r in rows) / 32000
+    t_host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipeline.main(["mel", "--manifest", str(manifest)])
+    torch.cuda.synchronize()
+    t_mel = time.perf_counter() - t0
+    plain = []
+    real_plain = vq.vq_nearest_plain
+    vq.vq_nearest_plain = lambda x, cb: plain.append(1) or real_plain(x, cb)
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        pipeline.main(["vq", "--manifest", str(manifest), "--ckpt", str(codec_ckpt)])
+        torch.cuda.synchronize()
+        t_vq = time.perf_counter() - t0
+    finally:
+        vq.vq_nearest_plain = real_plain
+    launches = counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want["vq_nearest"] = n
+    if launches != want or plain:
+        raise RuntimeError(f"(m) pipeline vq launched {launches}, plain calls {len(plain)}; "
+                           f"expected one VQ launch per clip ({n})")
+    # the subcommand's time splits into the checkpoint's load (the GAN state,
+    # optimizers included) and the clips: each part again, apart
+    cfg = default_config()
+    t0 = time.perf_counter()
+    codec = pipeline.load_codec(str(codec_ckpt), cfg, torch.device("cuda"))
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    per_clip = []
+    for r in rows:
+        wav, _ = load_wav(r["path"], target_sr=cfg.audio.sampling_rate)
+        t0 = time.perf_counter()
+        pipeline.extract_codes(codec, wav, cfg.audio, torch.device("cuda"))
+        per_clip.append((time.perf_counter() - t0) * 1e3)
+    # one clip against the f32 CPU path, from the same checkpoint
+    codec = pipeline.load_codec(str(codec_ckpt), cfg, torch.device("cpu"))
+    wav, _ = load_wav(rows[0]["path"], target_sr=cfg.audio.sampling_rate)
+    codes_cpu = pipeline.extract_codes(codec, wav, cfg.audio, torch.device("cpu"))
+    codes_card = load_sidecar(rows[0]["path"], "vq")
+    wav24, _ = load_wav(rows[0]["path"], target_sr=24000)
+    with torch.no_grad():
+        mel_cpu = acoustic_mel_spectrogram(torch.from_numpy(wav24)[None])[0].numpy()
+    mel_card = load_sidecar(rows[0]["path"], "mel")
+    mag = np.abs(np.exp(mel_card) - np.exp(mel_cpu)).max() / np.exp(mel_cpu).max()
+    frames = [int(np.prod(load_sidecar(r["path"], "vq").shape)) for r in rows]
+    log(f"(m) data preparation: {len(list((root / 'raw').glob('*.wav')))} recordings -> vad "
+        f"{n} clips ({secs:.1f} s of audio), asr, bpe-corpus: {t_host:.2f} s on the host | mel "
+        f"{n} sidecars {t_mel:.2f} s ({t_mel / n * 1e3:.2f} ms a clip) | vq {n} sidecars "
+        f"{t_vq:.2f} s ({t_vq / n * 1e3:.2f} ms a clip, {min(frames)}-{max(frames)} codes; "
+        f"again apart: the checkpoint's load {t_load:.2f} s, a clip's codes median "
+        f"{np.median(per_clip):.2f} ms ({min(per_clip):.2f}-{max(per_clip):.2f}), wav read "
+        f"to codes on the host), VQ kernel launches {launches['vq_nearest']} (one a clip), "
+        f"plain version 0 times, no other kernel | clip 0 against the f32 CPU path: codes "
+        f"{int((codes_card == codes_cpu).sum())}/{codes_cpu.size} equal, mel magnitudes "
+        f"within {mag:.3e} of the peak (tol {RECIPE_TOL['mel_peak']}) | card {card}")
+    if codes_card.shape != codes_cpu.shape or (codes_card != codes_cpu).any():
+        raise RuntimeError("(m) the card's codes differ from the f32 CPU path's")
+    if not mag <= RECIPE_TOL["mel_peak"]:
+        raise RuntimeError(f"(m) the card's mel sidecar is {mag:.3e} from the CPU's")
+    return {"manifest": str(manifest), "rows": rows,
+            "vq_per_clip": {k: c / n for k, c in launches.items()}}
+
+
+def _no_dropout(model: torch.nn.Module) -> torch.nn.Module:
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+        if isinstance(getattr(m, "dropout", None), float):
+            m.dropout = 0.0
+    return model
+
+
+def _compare_clvp(cfg, sd, batch) -> None:
+    """One CLVP loss and its gradients on the card (bf16 autocast) and the
+    CPU (f32), at the same weights, dropout off; then the card's again with
+    a planted precision fault, which RECIPE_TOL must refuse: no_autocast
+    made a no-op, so the pooling, latents, similarities and InfoNCE run
+    under bf16 autocast."""
+    import contextlib
+    import copy
+
+    from ttts_tpu_torch.models import clvp
+    from ttts_tpu_torch.train.steps import autocast, clvp_loss
+
+    cpu = clvp.CLVP(cfg.clvp)
+    cpu.load_state_dict(sd)
+    cpu = _no_dropout(cpu).train()
+    card = copy.deepcopy(cpu).cuda()
+    names = [n for n, _ in cpu.named_parameters()]
+
+    def step(model, dev):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with autocast(torch.device(dev), torch.bfloat16 if dev == "cuda" else None):
+            loss = clvp_loss(model, b)
+        return loss.item(), torch.autograd.grad(loss, list(model.parameters()),
+                                                allow_unused=True)
+
+    (loss_cpu, grads_cpu), (loss_card, grads_card) = step(cpu, "cpu"), step(card, "cuda")
+    _hold_train("CLVP step", loss_card, loss_cpu, _grad_reading(names, grads_card, grads_cpu),
+                [], RECIPE_TOL, "(m)")
+    kept = clvp.no_autocast
+    clvp.no_autocast = lambda device: contextlib.nullcontext()
+    try:
+        loss_card, grads_card = step(card, "cuda")
+    finally:
+        clvp.no_autocast = kept
+    try:
+        _hold_train("CLVP step, planted: pooling and InfoNCE under bf16 autocast", loss_card,
+                    loss_cpu, _grad_reading(names, grads_card, grads_cpu), [], RECIPE_TOL,
+                    "(m)")
+    except RuntimeError:
+        log("(m) RECIPE_TOL refuses the planted fault, as it must")
+    else:
+        raise RuntimeError("(m) RECIPE_TOL passed the planted precision fault")
+
+
+def _train_clvp(cfg, data: dict, root, card: str) -> dict:
+    """(m) 2: train.mains clvp at full width, a resume, the card against the
+    CPU, the export served by TextToSpeech.from_checkpoints. → launches per
+    step."""
+    from ttts_tpu_torch.api import TextToSpeech
+    from ttts_tpu_torch.data.datasets import CLVPDataset
+    from ttts_tpu_torch.train import mains
+    from ttts_tpu_torch.train.checkpoints import export_model
+
+    t0 = time.perf_counter()
+    tokens = lambda b: float(b["text"].numel() + b["speech_tokens"].numel())  # noqa: E731
+
+    def make():
+        return mains.clvp_trainer(cfg, data["manifest"], str(root / "clvp"), "cuda")
+
+    first = _run_trainer(make, "CLVP training", tokens, tag="(m)")
+    tr = first["trainer"]
+    if tr.ckpt.all_steps()[-2:] != [RECIPE_SAVE, RECIPE_STEPS]:
+        raise RuntimeError(f"(m) CLVP checkpoints {tr.ckpt.all_steps()}")
+    tr.ckpt.path(RECIPE_STEPS).unlink()
+    again = _run_trainer(make, f"CLVP resumed from step {RECIPE_SAVE}", tokens, tag="(m)")
+    if again["steps"] != RECIPE_STEPS - RECIPE_SAVE or again["trainer"].step != RECIPE_STEPS:
+        raise RuntimeError("(m) the CLVP resume did not continue from its checkpoint")
+    for run in (first, again):
+        if any(run["launches"].values()):
+            raise RuntimeError(f"(m) CLVP training launched {run['launches']}")
+    ds = CLVPDataset(data["manifest"])
+    batch = ds.collate([ds[i] for i in range(RECIPE_BATCH)])
+    wall, busy, nl = _training_busy(again["trainer"], batch)
+    log(f"(m) CLVP: no kernel launched (its steps run under autograd: the masked plain "
+        f"attention) | throughput over the resumed steps {again['per_s']:.0f} text+speech "
+        f"tokens/s | 3 steady steps of batch {RECIPE_BATCH} ({batch['speech_tokens'].shape[1]} "
+        f"codes): wall {wall:.1f} ms without the profiler, device busy {busy:.1f} ms in {nl} "
+        f"launches under it: busy share {busy / wall:.3f} | card {card}")
+    sd = {k: v.cpu() for k, v in again["trainer"].state.model.state_dict().items()}
+    small = {k: torch.as_tensor(v[:4]).long() for k, v in batch.items()}
+    _compare_clvp(cfg, sd, small)
+    export_model("clvp", sd, root / "clvp.npz")
+    tts = TextToSpeech.from_checkpoints(cfg, clvp=root / "clvp.npz", device="cuda")
+    served = tts.clvp.state_dict()
+    if any(not torch.equal(served[k].cpu(), v.to(torch.float16).to(served[k].dtype))
+           for k, v in sd.items() if v.is_floating_point()):
+        raise RuntimeError("(m) TextToSpeech.from_checkpoints(clvp=...) holds other weights")
+    wav = tts.tts(TEXT, synthetic_voice(3.0, 44100, seed=4), 44100, preset="fast",
+                  max_generate_length=200, seed=1)
+    if not (wav.size and np.isfinite(wav).all()):
+        raise RuntimeError("(m) the trained CLVP's rerank served a non-finite waveform")
+    del tts
+    log(f"(m) export_model('clvp') -> TextToSpeech.from_checkpoints(clvp=...) holds the "
+        f"trained weights (f16 release) -> tts 'fast' (4 candidates reranked): {wav.size} "
+        f"finite samples | CLVP part {time.perf_counter() - t0:.1f} s")
+    return {n: c / first["steps"] for n, c in first["launches"].items()}
+
+
+def _train_classifier(cfg, data: dict, root, card: str) -> dict:
+    """(m) 3: train.mains classifier on clean / noise lists of the mel
+    sidecars, misc classify with its export, pipeline filter-noise. →
+    launches per step."""
+    from ttts_tpu_torch.data.manifest import read_manifest
+    from ttts_tpu_torch.data.prepare import misc, pipeline
+    from ttts_tpu_torch.train import mains
+    from ttts_tpu_torch.train.checkpoints import export_model
+
+    t0 = time.perf_counter()
+    paths = [r["path"] for r in data["rows"]]
+    half = len(paths) // 2
+    (root / "clean.txt").write_text("\n".join(paths[:half]) + "\n")
+    (root / "noise.txt").write_text("\n".join(paths[half:]) + "\n")
+    frames = lambda b: float(b["mel"].shape[0] * b["mel"].shape[1])  # noqa: E731
+    run = _run_trainer(lambda: mains.classifier_trainer(
+        cfg, str(root / "clean.txt"), str(root / "noise.txt"), str(root / "cls"), "cuda"),
+        "classifier training", frames, tag="(m)")
+    if any(run["launches"].values()):
+        raise RuntimeError(f"(m) classifier training launched {run['launches']}")
+    export_model("classifier", run["trainer"].state.model.state_dict(), root / "cls.npz")
+    reset_counts()
+    t1 = time.perf_counter()
+    misc.main(["classify", "--manifest", data["manifest"], "--ckpt", str(root / "cls.npz"),
+               "--out", str(root / "noise_files.txt")])
+    torch.cuda.synchronize()
+    t_cls = time.perf_counter() - t1
+    flagged = [x for x in (root / "noise_files.txt").read_text().splitlines() if x]
+    pipeline.main(["filter-noise", "--manifest", data["manifest"], "--noise-files",
+                   str(root / "noise_files.txt"), "--out", str(root / "kept.jsonl")])
+    kept = len(read_manifest(root / "kept.jsonl"))
+    if kept != len(paths) - len(set(flagged) & set(paths)) or any(counts().values()):
+        raise RuntimeError(f"(m) classify / filter-noise: kept {kept}, flagged {len(flagged)}, "
+                           f"launches {counts()}")
+    log(f"(m) classifier: {run['steps']} steps, no kernel launched | misc classify of "
+        f"{len(paths)} clips on the card {t_cls:.2f} s ({t_cls / len(paths) * 1e3:.2f} ms a "
+        f"clip; its attention, D=128, is outside the kernels' domain): {len(flagged)} flagged "
+        f"-> filter-noise kept {kept} | classifier part {time.perf_counter() - t0:.1f} s | "
+        f"card {card}")
+    return {n: c / run["steps"] for n, c in run["launches"].items()}
+
+
+def _eval_hook(cfg, data: dict, trained: dict, root, card: str, rows: list) -> dict:
+    """(m) 4: make_diffusion_eval_fn through a diffusion Trainer with
+    eval_freq 1 on phase (k)'s denoiser and frozen GPT: launches against the
+    call sites, each kernel against its plain version at every shape the
+    hook gave it (rows `<kernel>_eval_hook`), ms, and the 10-step hook
+    against the f32 CPU hook."""
+    import copy
+    import types
+
+    from ttts_tpu_torch.data.datasets import DiffusionDataset
+    from ttts_tpu_torch.models.diffusion_net import AA_diffusion
+    from ttts_tpu_torch.models.gpt import UnifiedVoice
+    from ttts_tpu_torch.models.vocos import Vocos
+    from ttts_tpu_torch.train import mains
+    from ttts_tpu_torch.train.eval_hooks import make_diffusion_eval_fn
+
+    ds = DiffusionDataset(data["manifest"])
+    batch = ds.collate([ds[int(np.argmin(ds.lengths()))]])  # the shortest clip
+    torch.manual_seed(0)
+    vocos = Vocos(cfg.vocos)
+
+    def models(device):
+        """The frozen GPT, a sampler net (the hook loads the state's weights
+        into it) and the seeded Vocos, on `device`."""
+        gpt = UnifiedVoice(cfg.gpt)
+        gpt.load_state_dict(trained["gpt"])
+        return (gpt.to(device).eval(), AA_diffusion(cfg.diffusion_net),
+                copy.deepcopy(vocos).to(device))
+
+    gpt, sampler, voc = models("cuda")
+    hook = make_diffusion_eval_fn(sampler, gpt, voc, batch, steps=50,
+                                  amp_dtype=torch.bfloat16)
+    seen = {}
+
+    def eval_fn(step, state, writer):
+        torch.cuda.synchronize()
+        reset_counts()
+        sites, undo = _watch_call_sites(sampler, gpt)
+        try:
+            t0 = time.perf_counter()
+            with _PathShapes() as spy:
+                mel, wav = hook(step, state, writer)
+                torch.cuda.synchronize()
+            seen.update(first_ms=(time.perf_counter() - t0) * 1e3, sites=dict(sites),
+                        launches=counts(), mel=mel, wav=wav, step=step, state=state,
+                        shapes=spy.shapes)
+        finally:
+            undo()
+
+    one = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, train_steps=1,
+                                                             save_freq=1))
+    trainer = mains.diffusion_trainer(one, data["manifest"], trained["gpt"], str(root / "diff"),
+                                      "cuda", eval_fn=eval_fn, eval_freq=1)
+    trainer.state.model.load_state_dict(trained["diffusion"])
+    trainer.train()
+    if seen.get("step") != 1 or not (root / "diff" / "tb" / "eval" / "sample" / "1.wav").exists():
+        raise RuntimeError("(m) the Trainer did not call the eval hook at step 1")
+    sites, launches = seen["sites"], seen["launches"]
+    want = dict.fromkeys(KERNELS, 0)
+    for n in ("flash_attention_bias", "scale_shift_resblock", "flash_attention_causal"):
+        want[n] = sites[n]
+    if launches != want or sites["flash_attention_causal"] != cfg.gpt.layers or not all(
+            want[n] for n in ("flash_attention_bias", "scale_shift_resblock")):
+        raise RuntimeError(f"(m) eval hook launches {launches}, call sites {sites}")
+    # each kernel at every shape the hook gave it (the trunk's ragged T, the
+    # conditioning encoders', the frozen GPT's latent)
+    if any(bool(seen["shapes"][n]) != bool(launches[n]) for n in HELD):
+        raise RuntimeError(f"(m) eval hook shapes {seen['shapes']}, launches {launches}")
+    _hold_path_shapes(rows, seen["shapes"], "(m)", "diffusion eval hook", "_eval_hook")
+    if not (torch.isfinite(seen["mel"]).all() and torch.isfinite(seen["wav"]).all()):
+        raise RuntimeError("(m) the eval hook gave a non-finite mel or waveform")
+    state = seen["state"]
+    ms = median_ms(lambda: hook(2, state, None), reps=3, warmup=1)
+    # 10 steps, shared noise: the card's hook against the f32 CPU hook
+    t = batch["mel"].shape[1]
+    noise = torch.randn((1, t, batch["mel"].shape[-1]), generator=torch.Generator().manual_seed(3))
+    hook10 = make_diffusion_eval_fn(AA_diffusion(cfg.diffusion_net), gpt, voc, batch, steps=10,
+                                    amp_dtype=torch.bfloat16)
+    mel_card, wav_card = hook10(3, state, None, noise=noise)
+    gpt_c, sampler_c, voc_c = models("cpu")
+    net_c = AA_diffusion(cfg.diffusion_net)
+    net_c.load_state_dict(trained["diffusion"])
+    hook_cpu = make_diffusion_eval_fn(sampler_c, gpt_c, voc_c, batch, steps=10)
+    mel_cpu, wav_cpu = hook_cpu(3, types.SimpleNamespace(model=net_c), None, noise=noise)
+    errs = {"eval mel": rel_err(mel_card.float().cpu(), mel_cpu),
+            "eval wav": rel_err(wav_card.float().cpu(), wav_cpu)}
+    log(f"(m) eval hook through a diffusion Trainer (eval_freq 1) on phase (k)'s denoiser and "
+        f"frozen GPT, {t} mel frames, 50 DPM++(2M) steps: launches "
+        f"{ {n: c for n, c in launches.items() if c} } = the call sites' calls (the causal "
+        f"kernel once per GPT layer: no call site took its plain version) | first call "
+        f"{seen['first_ms']:.1f} "
+        f"ms, steady median {ms:.1f} ms | writer files under tb/eval | 10 steps, shared noise, "
+        f"card vs f32 CPU: mel rel {errs['eval mel']:.3e} (tol {RECIPE_TOL['eval mel']}), wav "
+        f"rel {errs['eval wav']:.3e} (tol {RECIPE_TOL['eval wav']}) | card {card}")
+    for k, v in errs.items():
+        if not v <= RECIPE_TOL[k]:
+            raise RuntimeError(f"(m) {k}: {v:.3e} > {RECIPE_TOL[k]}")
+    return {n: c for n, c in launches.items()}
+
+
+def phase_recipe(card: str, rows: list, trained: dict, codec_root) -> dict:
+    """(m) The rest of the five-stage recipe at default_config() widths on
+    the card, through the port's CLIs and trainers: data preparation from
+    raw recordings (vq through phase (l)'s codec checkpoint), CLVP and
+    classifier training, and the diffusion eval hook on phase (k)'s models.
+    → the launches of the eval hook's call, of `pipeline vq` per clip and
+    of a CLVP and a classifier step."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from ttts_tpu_torch.config import default_config
+
+    t_phase = time.perf_counter()
+    base = default_config()
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, train_steps=RECIPE_STEPS, save_freq=RECIPE_SAVE, batch_size=RECIPE_BATCH))
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ttts_recipe_"))
+    try:
+        data = _prepare(root, pathlib.Path(codec_root) / "ckpt", card)
+        clvp = _train_clvp(cfg, data, root, card)
+        classifier = _train_classifier(cfg, data, root, card)
+        launches = _eval_hook(cfg, data, trained, root, card, rows)
+        log(f"(m) phase (m) {time.perf_counter() - t_phase:.1f} s | card {card}")
+        return {"eval_hook": launches, "vq_per_clip": data["vq_per_clip"], "clvp": clvp,
+                "classifier": classifier}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2266,8 +2755,15 @@ def main() -> int:
     phase_profile(rows, tts)
     phase_planted()
     slice7 = phase_slice7(tts, per_fast, card)
-    train = phase_training(card, rows)
-    gan = phase_gan(card, rows)
+    train, trained = phase_training(card, rows)
+    keep = pathlib.Path(tempfile.mkdtemp(prefix="ttts_codec_"))
+    try:
+        gan = phase_gan(card, rows, keep)
+        del tts
+        torch.cuda.empty_cache()
+        recipe = phase_recipe(card, rows, trained, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     table = []
     for name, (_, _, _, source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
@@ -2280,20 +2776,28 @@ def main() -> int:
                       "launches_gpt_train_step": train["gpt"][name],
                       "launches_diffusion_train_step": train["diffusion"][name],
                       "launches_vqvae_train_step": gan["per_step"][name],
+                      "launches_pipeline_vq_per_clip": recipe["vq_per_clip"][name],
+                      "launches_clvp_train_step": recipe["clvp"][name],
+                      "launches_classifier_train_step": recipe["classifier"][name],
+                      "launches_diffusion_eval_hook": recipe["eval_hook"][name],
                       "max_abs_err": max(r["max_abs_err"] for r in mine),
                       "ms": last["ms"], "plain_ms": last["plain_ms"],
                       "bound_ms": last["bound_ms"], "bound_by": last["bound_by"],
                       "library_ms": last["library_ms"]})
-    # the VQ kernel at the GAN step's training shape: its own row, whose
-    # launches are the GAN run's
-    vq_row = [r for r in rows if r["name"] == "vq_nearest_gan_train"][-1]
-    _, _, _, source, replaces = KERNELS["vq_nearest"]
-    table.append({"name": "vq_nearest_gan_train", "route": "cuda", "source": source,
-                  "replaces": replaces, "launches": gan["launches"],
-                  "launches_vqvae_train_step": gan["per_step"]["vq_nearest"],
-                  "max_abs_err": vq_row["max_abs_err"], "ms": vq_row["ms"],
-                  "plain_ms": vq_row["plain_ms"], "bound_ms": vq_row["bound_ms"],
-                  "bound_by": vq_row["bound_by"], "library_ms": vq_row["library_ms"]})
+    # kernels at a training path's shapes: rows of their own, whose launches
+    # are that path's (the VQ kernel in the GAN run, the trunk and causal
+    # kernels in the diffusion eval hook's call, at its largest shape)
+    extra = [("vq_nearest_gan_train", "vq_nearest", gan["launches"],
+              {"launches_vqvae_train_step": gan["per_step"]["vq_nearest"]})]
+    extra += [(f"{n}_eval_hook", n, recipe["eval_hook"][n], {}) for n in HELD]
+    for row_name, name, n_launches, more in extra:
+        row = [r for r in rows if r["name"] == row_name][-1]
+        _, _, _, source, replaces = KERNELS[name]
+        table.append({"name": row_name, "route": "cuda", "source": source,
+                      "replaces": replaces, "launches": n_launches, **more,
+                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                      "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s; steady RTF fast {rtf['fast']:.4f}, "
         f"ultra_fast {rtf['ultra_fast']:.4f}")
     print(f"card: {card}", flush=True)

@@ -177,7 +177,7 @@ def test_trunk_gates(monkeypatch, c, heads, fits):
 @pytest.mark.parametrize("dim_head,fits", [(64, True), (48, False)])
 def test_clvp_gate(monkeypatch, dim_head, fits):
     calls = _spy(monkeypatch, attention, "flash_attention", "flash_attention_plain")
-    attn = cast_for_inference(clvp.Attention(64, 2, dim_head))
+    attn = cast_for_inference(clvp.Attention(64, 2, dim_head)).eval()  # as served
     with torch.no_grad():
         attn(torch.randn(2, 6, 64).to(BF))
     assert calls == ({"kernel": 1, "plain": 0} if fits else {"kernel": 0, "plain": 1})

@@ -38,3 +38,32 @@ def test_no_jax_imports(path):
         assert root not in ("jax", "jaxlib", "flax", "optax"), f"{path.name}: {mod}"
         if root == "ttts_tpu":
             assert mod.startswith(ALLOWED), f"{path.name} imports {mod}"
+
+
+# the modules of the data-preparation and training-recipe slice: the scan
+# above must cover them
+SLICE = ["data/audio.py", "data/prepare/pipeline.py", "data/prepare/misc.py",
+         "text/alignment.py", "train/eval_hooks.py", "utils/logging.py"]
+
+
+def test_scan_covers_the_recipe_modules():
+    assert all(PKG / p in FILES for p in SLICE)
+
+
+@pytest.mark.parametrize("model", ["clvp", "classifier"])
+def test_clvp_and_classifier_training_entry_points(model, tmp_path):
+    """`python -m ttts_tpu_torch.train.mains clvp|classifier` parse and reach
+    their trainers (a missing input file, not a refusal)."""
+    import subprocess
+    import sys
+
+    from ttts_tpu_torch.train import mains
+
+    out = subprocess.run([sys.executable, "-m", "ttts_tpu_torch.train.mains", model, "--help"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "--clean" in out.stdout and "classifier" in out.stdout
+    missing = str(tmp_path / "missing")
+    args = (["--manifest", missing] if model == "clvp"
+            else ["--clean", missing, "--noise", missing])
+    with pytest.raises(FileNotFoundError):
+        mains.main([model, *args, "--device", "cpu", "--logs", str(tmp_path / "logs")])

@@ -12,13 +12,20 @@ padded numpy batches, with the reference's filters:
     GAN; duration filter 0.65-54 s, wav → mono 32 kHz cut to whole hops and
     clipped to [-1, 1], pinyin → BPE; frames padded to a multiple of 8, text
     to 16 (ttts_tpu/data/datasets.py:184-228).
-Batches pad to multiples of `pad_to`, as the JAX package's do. The CLVP and
-mel-classifier datasets are not ported yet.
+  - CLVPDataset (ttts/clvp/dataset.py; datasets.py:231-270): BPE text ids
+    and the `.vq` sidecar's speech codes, both padded to multiples of 32.
+  - PreprocessedMelDataset (ttts/classifier/dataset.py:13-58; datasets.py:
+    273-335): clean (label 0) and noise (label 1) `.mel` sidecars, random-
+    cropped or zero-padded to `pad_to` frames; the crop starts come from the
+    dataset's numpy generator in __getitem__ order, so a loader repeats the
+    JAX package's crops only with one worker.
+Batches pad to multiples of `pad_to`, as the JAX package's do.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -224,3 +231,99 @@ class VQGANDataset:
             "text": np.stack([_pad_to(e["text"], lt) for e in ex]),
             "text_lengths": np.asarray([len(e["text"]) for e in ex], np.int32),
         }
+
+
+class CLVPDataset:
+    """text ids + speech VQ codes (the `.vq` sidecars)."""
+
+    def __init__(self, manifest_path: str, tokenizer: Optional[VoiceBpeTokenizer] = None):
+        self.rows = read_manifest(manifest_path)
+        self.tok = tokenizer or default_tokenizer()
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx: int) -> Optional[dict]:
+        row = self.rows[idx]
+        try:
+            ids = np.asarray(self.tok.encode(text_to_pinyin(row["text"])), np.int32)
+            codes = load_sidecar(row["path"], "vq")
+            if codes is None:
+                return None
+            return {"text": ids, "speech_tokens": np.asarray(codes, np.int32).reshape(-1)}
+        except Exception:
+            return None
+
+    def lengths(self) -> List[int]:
+        """Per-row VQ-code count from the sidecar header (-1 = missing)."""
+        out = []
+        for r in self.rows:
+            shp = sidecar_shape(r["path"], "vq")
+            out.append(int(np.prod(shp)) if shp else -1)
+        return out
+
+    def collate(self, examples, pad_to: int = 32):
+        ex = [e for e in examples if e is not None]
+        if not ex:
+            return None
+        lt = _round_up(max(len(e["text"]) for e in ex), pad_to)
+        ls = _round_up(max(len(e["speech_tokens"]) for e in ex), pad_to)
+        return {
+            "text": np.stack([_pad_to(e["text"], lt) for e in ex]),
+            "speech_tokens": np.stack([_pad_to(e["speech_tokens"], ls) for e in ex]),
+        }
+
+
+class PreprocessedMelDataset:
+    """Clean / noise `.mel` sidecars for the audio-quality classifier. Each
+    line of `clean_list` / `noise_list` is a wav path (its `<wav>.mel.npy`
+    sidecar) or a directory (its `*.mel.npy` files, recursively, sorted);
+    clean lines label 0, noise lines 1. Mels are channels-last (T, spec_dim),
+    random-cropped to `pad_to` frames or zero-padded up to it."""
+
+    def __init__(self, clean_list: str, noise_list: str, pad_to: int = 700,
+                 spec_dim: int = 100, rng: Optional[np.random.Generator] = None):
+        self.items: List[tuple] = []
+        for list_path, label in ((clean_list, 0), (noise_list, 1)):
+            for line in pathlib.Path(list_path).read_text().splitlines():
+                line = line.strip()
+                if not line:
+                    continue
+                if line.endswith(".wav"):
+                    self.items.append((line + ".mel.npy", label))
+                else:
+                    self.items.extend((str(p), label)
+                                      for p in sorted(pathlib.Path(line).rglob("*.mel.npy")))
+        self.pad_to = pad_to
+        self.spec_dim = spec_dim
+        self.rng = rng or np.random.default_rng(0)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx: int) -> Optional[dict]:
+        path, label = self.items[idx]
+        try:
+            mel = np.asarray(np.load(path), np.float32)
+            if mel.ndim == 3:
+                mel = mel[0]
+            # sidecars are channels-first (spec_dim, T); spec_dim decides the
+            # orientation of a short clip
+            if mel.shape[-1] != self.spec_dim:
+                mel = mel.T
+            t = mel.shape[0]
+            if t >= self.pad_to:
+                start = int(self.rng.integers(0, t - self.pad_to + 1))
+                mel = mel[start:start + self.pad_to]
+            else:
+                mel = np.pad(mel, ((0, self.pad_to - t), (0, 0)))
+            return {"mel": mel, "label": int(label)}
+        except Exception:
+            return None
+
+    def collate(self, examples, pad_to: int = 0):
+        ex = [e for e in examples if e is not None]
+        if not ex:
+            return None
+        return {"mel": np.stack([e["mel"] for e in ex]),
+                "labels": np.asarray([e["label"] for e in ex], np.int32)}

@@ -3,9 +3,10 @@ ttts_tpu/models/classifier.py (reference ttts/classifier/model.py:82-152,
 AudioMiniEncoderWithClassifierHead): conv stem → depth x (resnet_blocks x
 ResBlock + strided conv) → GroupNorm / SiLU / 1x1 to embedding_dim →
 attn_blocks x AttentionBlock without a position bias → frame 0 → linear
-head. Input is a mel spectrogram (B, T, spec_dim) channels-last. The port
-is the inference forward (dropout off, as the JAX module's default
-deterministic=True).
+head. Input is a mel spectrogram (B, T, spec_dim) channels-last. Each
+ResBlock drops its second activation at cfg.dropout in training mode
+(`model.train()`, JAX's deterministic=False), between the second SiLU and
+the last convolution.
 
 The strided convolutions pad as flax "SAME" does, which depends on T
 (blocks.same_pad). The attention goes through `attention.attend`: at the
@@ -34,11 +35,11 @@ class ClassifierResBlock(nn.Module):
     """x + conv(SiLU(GN(conv(SiLU(GN(x)))))) (`in_layers.0/.2`,
     `out_layers.0/.3`)."""
 
-    def __init__(self, channels: int, kernel_size: int = 3):
+    def __init__(self, channels: int, kernel_size: int = 3, dropout: float = 0.0):
         super().__init__()
         self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(),
                                        Conv1d(channels, channels, kernel_size))
-        self.out_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(), nn.Dropout(0.0),
+        self.out_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(), nn.Dropout(dropout),
                                         Conv1d(channels, channels, kernel_size))
 
     def forward(self, x):
@@ -62,7 +63,8 @@ class AudioMiniEncoder(nn.Module):
         self.init = nn.Sequential(Conv1d(c.spec_dim, c.base_channels, 3))
         res, ch = [], c.base_channels
         for _ in range(c.depth):
-            res += [ClassifierResBlock(ch, c.kernel_size) for _ in range(c.resnet_blocks)]
+            res += [ClassifierResBlock(ch, c.kernel_size, c.dropout)
+                    for _ in range(c.resnet_blocks)]
             res.append(Downsample(ch, 2 * ch, c.downsample_factor))
             ch *= 2
         self.res = nn.Sequential(*res)

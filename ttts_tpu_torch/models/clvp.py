@@ -11,10 +11,10 @@ encoder. Masked mean pooling, the latent projections, the L2 norm and
 exp(temperature) run in f32, and the output is one similarity per (text,
 speech) pair.
 
-Unmasked attention (the rerank) runs the flash-attention kernel in its
-no-bias mode through `attention.attend`, which takes the plain version
-outside the kernel's domain; a call with masks (training only) takes the
-masked plain version.
+Unmasked attention outside training (the rerank) runs the flash-attention
+kernel in its no-bias mode through `attention.attend`, which takes the plain
+version outside the kernel's domain; a call with masks or in training takes
+the masked plain version.
 
 The plain flavour (`use_xformers=False`, the reference v2 trainer's) adds
 learned absolute position tables (the speech table vocabulary-sized) and
@@ -25,6 +25,20 @@ scales initialised to 0.1, LayerNorm epsilon 1e-5, keys masked with
 JAX package computes it outside any kernel and always in f32 (the serving
 path keeps its weights f32 on the card).
 
+Training (`model.train()`, `return_loss=True`; JAX's train=True): where
+text_mask_percentage / voice_mask_percentage > 0, each token is kept where
+its uniform draw exceeds the percentage (the draws injected as
+`mask_draws`, else torch.rand); the x-transformers flavour's attention
+drops probabilities and its feed-forward drops the GLU output at 0.1
+(JAX's fixed EncoderLayer dropout; the plain flavour's is 0, as in JAX),
+so its attention takes the masked plain version, which computes the
+scores, the fill (-finfo(float32).max) and the softmax in f32 whatever
+autocast asks, as JAX's does. The plain flavour runs in f32 with autocast
+off, as JAX computes it (its fill is then -finfo(float32).max too). The
+pooling, latents and the symmetric InfoNCE loss run in f32 with autocast
+off. A row whose tokens are all masked pools to zero and its latent is
+0/0 (NaN), as in JAX.
+
 Module and parameter names are the reference's (ttts/clvp/model.py with
 CheckpointedXTransformerEncoder, or utils/transformer.py), so
 ttts_tpu.models.porting.port_clvp_xformers_state / port_clvp_state read
@@ -33,8 +47,9 @@ this state dict, and released reference checkpoints load unchanged.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -73,20 +88,42 @@ def apply_rotary(x: torch.Tensor, rot: int) -> torch.Tensor:
     return torch.cat([xl * ang.cos() + torch.cat([-x2, x1], dim=-1) * ang.sin(), xr], dim=-1)
 
 
-def masked_attention(q, k, v, mask):
-    """Plain attention with the pair mask q_mask x k_mask filled with
-    -finfo.max (xtransformers.py:633-639, 667); q, k, v (B, T, H, D)."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
-    pair = mask[:, None, :, None] & mask[:, None, None, :]
-    s = s.masked_fill(~pair, -torch.finfo(torch.float32).max)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)
+def no_autocast(device: torch.device):
+    """Autocast off on `device` (a no-op context where it is not on)."""
+    if not torch.is_autocast_enabled(device.type):
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, enabled=False)
+
+
+# the x-transformers flavour's attention and feed-forward dropout in training
+# mode (JAX's fixed EncoderLayer rate)
+DROPOUT = 0.1
+
+
+def masked_attention(q, k, v, mask: Optional[torch.Tensor], dropout: float = 0.0):
+    """Plain attention in f32 (autocast off) with the pair mask q_mask x
+    k_mask filled with -finfo(float32).max (xtransformers.py:633-639, 667),
+    or no mask (None), and dropout on the probabilities; q, k, v (B, T, H,
+    D), out in q's dtype."""
+    with no_autocast(q.device):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+        if mask is not None:
+            pair = mask[:, None, :, None] & mask[:, None, None, :]
+            s = s.masked_fill(~pair, -torch.finfo(torch.float32).max)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        if dropout > 0:
+            p = F.dropout(p, dropout)
+        return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)
 
 
 class Attention(nn.Module):
+    """Rotary attention; with a mask, or with dropout in training mode, the
+    masked plain version, else `attention.attend` (the no-bias kernel's
+    dispatch)."""
+
     def __init__(self, dim: int, heads: int, dim_head: int):
         super().__init__()
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.dropout = heads, dim_head, DROPOUT
         inner = heads * dim_head
         self.to_q = Linear(dim, inner, bias=False)
         self.to_k = Linear(dim, inner, bias=False)
@@ -99,7 +136,11 @@ class Attention(nn.Module):
         rot = max(dk // 2, 32)
         q, k, v = (apply_rotary(f(x).reshape(b, t, h, dk), rot).to(x.dtype)
                    for f in (self.to_q, self.to_k, self.to_v))
-        a = attention.attend(q, k, v) if mask is None else masked_attention(q, k, v, mask)
+        dropout = self.dropout if self.training else 0.0
+        if mask is None and dropout == 0.0:
+            a = attention.attend(q, k, v)
+        else:
+            a = masked_attention(q, k, v, mask, dropout)
         return self.to_out(a.reshape(b, t, h * dk))
 
 
@@ -118,7 +159,7 @@ class FeedForward(nn.Module):
         super().__init__()
         # the reference's slots 1 and 2 (post-activation norm, dropout) hold
         # no weights
-        self.net = nn.Sequential(GLU(dim, dim * mult), nn.Identity(), nn.Identity(),
+        self.net = nn.Sequential(GLU(dim, dim * mult), nn.Identity(), nn.Dropout(DROPOUT),
                                  Linear(dim * mult, dim))
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
@@ -136,14 +177,15 @@ class _Checkpointed(nn.Module):
 class CLVPEncoder(nn.Module):
     """CheckpointedXTransformerEncoder → ContinuousTransformerWrapper:
     layers[2i] attention, layers[2i+1] feed-forward, each [pre-norm, block],
-    then the wrapper's final LayerNorm (f32 out)."""
+    then the wrapper's final LayerNorm (f32 out); DROPOUT in training
+    mode."""
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int = 64):
         super().__init__()
         layers = []
         for _ in range(depth):
-            layers.append(nn.ModuleList([nn.ModuleList([RMSNorm(dim)]),
-                                         _Checkpointed(Attention(dim, heads, dim_head))]))
+            layers.append(nn.ModuleList([nn.ModuleList([RMSNorm(dim)]), _Checkpointed(
+                Attention(dim, heads, dim_head))]))
             layers.append(nn.ModuleList([nn.ModuleList([RMSNorm(dim)]),
                                          _Checkpointed(FeedForward(dim))]))
         self.transformer = nn.Module()
@@ -224,8 +266,10 @@ class PlainEncoder(nn.Module):
                            _LayerScale(dim, PlainFeedForward(dim))]) for _ in range(depth))
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):
-        for attn, ff in self.layers.layers:
-            x = ff(attn(x, mask), mask)
+        with no_autocast(x.device):
+            x = x.float()
+            for attn, ff in self.layers.layers:
+                x = ff(attn(x, mask), mask)
         return x
 
 
@@ -269,13 +313,46 @@ class CLVP(nn.Module):
             speech_emb = speech_emb + self.speech_pos_emb.weight[: speech_tokens.shape[1]]
         enc_text = self.text_transformer(text_emb, text_mask).float()
         enc_speech = self.speech_transformer(speech_emb, voice_mask).float()
-        text_latent = self.to_text_latent(masked_mean(enc_text, text_mask))
-        speech_latent = self.to_speech_latent(masked_mean(enc_speech, voice_mask))
+        with no_autocast(enc_text.device):
+            text_latent = self.to_text_latent(masked_mean(enc_text, text_mask))
+            speech_latent = self.to_speech_latent(masked_mean(enc_speech, voice_mask))
         return (text_latent / text_latent.norm(dim=-1, keepdim=True),
                 speech_latent / speech_latent.norm(dim=-1, keepdim=True))
 
-    def forward(self, text, speech_tokens, text_mask=None, voice_mask=None):
+    def train_masks(self, text, speech_tokens, text_mask=None, voice_mask=None,
+                    mask_draws: Optional[Dict[str, torch.Tensor]] = None):
+        """The training masks (clvp/model.py:228-236): where a percentage is
+        above 0, a token is kept where its uniform draw (mask_draws["text"]
+        (B, Lt) / ["voice"] (B, Ls), else torch.rand) exceeds it, and the
+        mask starts all-ones when not given; else the mask is left as given."""
+        c = self.cfg
+        out = []
+        for key, x, mask, pct in (("text", text, text_mask, c.text_mask_percentage),
+                                  ("voice", speech_tokens, voice_mask,
+                                   c.voice_mask_percentage)):
+            if pct > 0:
+                u = (mask_draws or {}).get(key)
+                if u is None:
+                    u = torch.rand(x.shape, device=x.device)
+                keep = u.to(x.device) > pct
+                mask = keep if mask is None else mask & keep
+            out.append(mask)
+        return tuple(out)
+
+    def forward(self, text, speech_tokens, text_mask=None, voice_mask=None,
+                return_loss: bool = False, mask_draws: Optional[Dict[str, torch.Tensor]] = None):
         """→ similarity per pair (B,) f32: exp(temperature) * cos(text latent,
-        speech latent); see `latents`."""
+        speech latent); see `latents`. With `return_loss`, the symmetric
+        InfoNCE over the batch's pairs (clvp/model.py:137-139), f32; in
+        training mode the masks are drawn first (`train_masks`)."""
+        if self.training:
+            text_mask, voice_mask = self.train_masks(text, speech_tokens, text_mask,
+                                                     voice_mask, mask_draws)
         text_latent, speech_latent = self.latents(text, speech_tokens, text_mask, voice_mask)
-        return (text_latent * speech_latent).sum(dim=-1) * self.temperature.float().exp()
+        with no_autocast(text_latent.device):
+            temp = self.temperature.float().exp()
+            if not return_loss:
+                return (text_latent * speech_latent).sum(dim=-1) * temp
+            sim = text_latent @ speech_latent.t() * temp
+            labels = torch.arange(sim.shape[0], device=sim.device)
+            return 0.5 * (F.cross_entropy(sim, labels) + F.cross_entropy(sim.t(), labels))

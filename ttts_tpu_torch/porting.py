@@ -16,7 +16,8 @@ flax WeightNorm (kernel v, scale g) → (weight_v, weight_g).
 
 The maps only relayout, so they carry gradients as they carry weights.
 `unified_voice_variables`, `aa_diffusion_variables`,
-`synthesizer_trn_variables` and `discriminator_variables` go the other way,
+`synthesizer_trn_variables`, `discriminator_variables`, `clvp_variables`
+and `classifier_variables` go the other way,
 from this package's state dicts (numpy arrays or tensors) to the JAX
 variable trees (VARIABLES_FNS; train/checkpoints.export_release writes
 them in the JAX package's release format).
@@ -887,5 +888,85 @@ def discriminator_variables(sd) -> dict:
     return {"params": params}
 
 
+# ------------------------------------------------------- clvp and classifier
+
+
+def _inv_clvp_encoder(sd, p: str) -> dict:
+    layers = p + ".transformer.attn_layers.layers."
+    tree = {"LayerNorm_0": _inv_norm(sd, p + ".transformer.norm")}
+    for i in range(len(_indices(sd, layers)) // 2):
+        ap, fp = f"{layers}{2 * i}", f"{layers}{2 * i + 1}"
+        lyr = {"RMSNorm_0": {"scale": _np(sd[ap + ".0.0.g"])},
+               "Dense_3": _inv_dense(sd, ap + ".1.wrap.to_out"),
+               "RMSNorm_1": {"scale": _np(sd[fp + ".0.0.g"])},
+               "Dense_4": _inv_dense(sd, fp + ".1.wrap.net.0.proj"),
+               "Dense_5": _inv_dense(sd, fp + ".1.wrap.net.3")}
+        for j, name in enumerate(("to_q", "to_k", "to_v")):
+            lyr[f"Dense_{j}"] = {"kernel": _np(sd[f"{ap}.1.wrap.{name}.weight"]).T}
+        tree[f"EncoderLayer_{i}"] = lyr
+    return tree
+
+
+def _inv_clvp_plain_encoder(sd, p: str) -> dict:
+    tree = {}
+    for i in _indices(sd, p + ".layers.layers."):
+        lp = f"{p}.layers.layers.{i}"
+        tree[f"PlainEncoderLayer_{i}"] = {
+            "LayerNorm_0": _inv_norm(sd, lp + ".0.fn.norm"),
+            "Dense_0": {"kernel": _np(sd[lp + ".0.fn.fn.to_qkv.weight"]).T},
+            "Dense_1": _inv_dense(sd, lp + ".0.fn.fn.to_out.0"),
+            "attn_gamma": _np(sd[lp + ".0.scale"]),
+            "LayerNorm_1": _inv_norm(sd, lp + ".1.fn.norm"),
+            "Dense_2": _inv_dense(sd, lp + ".1.fn.fn.net.0"),
+            "Dense_3": _inv_dense(sd, lp + ".1.fn.fn.net.3"),
+            "ff_gamma": _np(sd[lp + ".1.scale"])}
+    return tree
+
+
+def clvp_variables(sd) -> dict:
+    """ttts_tpu_torch CLVP state dict, either flavour → JAX CLVP variables;
+    the inverse of clvp_state_dict."""
+    p = {"Embed_0": {"embedding": _np(sd["text_emb.weight"])},
+         "Embed_1": {"embedding": _np(sd["speech_emb.weight"])},
+         "Dense_0": {"kernel": _np(sd["to_text_latent.weight"]).T},
+         "Dense_1": {"kernel": _np(sd["to_speech_latent.weight"]).T},
+         "temperature": _np(sd["temperature"]).reshape(())}
+    if "text_pos_emb.weight" in sd:
+        p["text_pos_emb"] = _np(sd["text_pos_emb.weight"])
+        p["speech_pos_emb"] = _np(sd["speech_pos_emb.weight"])
+        p["PlainEncoder_0"] = _inv_clvp_plain_encoder(sd, "text_transformer")
+        p["PlainEncoder_1"] = _inv_clvp_plain_encoder(sd, "speech_transformer")
+    else:
+        p["CLVPEncoder_0"] = _inv_clvp_encoder(sd, "text_transformer")
+        p["CLVPEncoder_1"] = _inv_clvp_encoder(sd, "speech_transformer")
+    return {"params": p}
+
+
+def classifier_variables(sd) -> dict:
+    """ttts_tpu_torch AudioMiniEncoderWithClassifierHead state dict → JAX
+    variables; the inverse of classifier_state_dict (enc.res holds each
+    depth's resnet blocks, then its strided conv `op`)."""
+    enc = {"Conv_0": _inv_conv_flax(sd, "enc.init.0"),
+           "GroupNorm32_0": {"GroupNorm_0": _inv_norm(sd, "enc.final.0")},
+           "Dense_0": _inv_dense_as_conv1x1(sd, "enc.final.2")}
+    blocks = downs = 0
+    for j in _indices(sd, "enc.res."):
+        bp = f"enc.res.{j}"
+        if bp + ".op.weight" in sd:
+            downs += 1
+            enc[f"Conv_{downs}"] = _inv_conv_flax(sd, bp + ".op")
+            continue
+        enc[f"ClassifierResBlock_{blocks}"] = {
+            "GroupNorm32_0": {"GroupNorm_0": _inv_norm(sd, bp + ".in_layers.0")},
+            "Conv_0": _inv_conv_flax(sd, bp + ".in_layers.2"),
+            "GroupNorm32_1": {"GroupNorm_0": _inv_norm(sd, bp + ".out_layers.0")},
+            "Conv_1": _inv_conv_flax(sd, bp + ".out_layers.3")}
+        blocks += 1
+    for i in _indices(sd, "enc.attn."):
+        enc[f"AttentionBlock_{i}"] = _inv_attn_block(sd, f"enc.attn.{i}")
+    return {"params": {"AudioMiniEncoder_0": enc, "Dense_0": _inv_dense(sd, "head")}}
+
+
 VARIABLES_FNS = {"gpt": unified_voice_variables, "diffusion": aa_diffusion_variables,
-                 "vqvae": synthesizer_trn_variables, "discriminator": discriminator_variables}
+                 "vqvae": synthesizer_trn_variables, "discriminator": discriminator_variables,
+                 "clvp": clvp_variables, "classifier": classifier_variables}

@@ -96,8 +96,28 @@ def export_release(params: Any, path: str | pathlib.Path, drop_prefixes=("enc_q"
 
 def export_model(name: str, state_dict, path: str | pathlib.Path,
                  config: Optional[dict] = None):
-    """One of this package's state dicts ("gpt", "diffusion", "vqvae" or
-    "discriminator") → a release `.npz` of the JAX variables
+    """One of this package's state dicts ("gpt", "diffusion", "vqvae",
+    "discriminator", "clvp" or "classifier") → a release `.npz` of the JAX variables
     (porting.VARIABLES_FNS); the codec's enc_q is dropped, as the JAX
     package's export drops it."""
     export_release(porting.VARIABLES_FNS[name](state_dict), path, config=config)
+
+
+def trained_state_dict(name: str, path: str | pathlib.Path):
+    """The weights of the named model from a release `.npz` (export_model)
+    or from this package's training checkpoints: a `ckpt` directory, or the
+    logs folder holding it, whose latest checkpoint is read (the generator's
+    model of a codec GAN state). → (state dict, whether it is a training
+    state's: the codec's then holds enc_q and its training buffers)."""
+    from ttts_tpu_torch.infer_utils import load_state_dict
+
+    p = pathlib.Path(path)
+    if p.suffix == ".npz":
+        return load_state_dict(name, p), False
+    if (p / "ckpt").is_dir():
+        p = p / "ckpt"
+    _, tree = CheckpointManager(p).restore()
+    if tree is None:
+        raise FileNotFoundError(f"no checkpoint under {p}")
+    state = tree["state"]
+    return (state["g"] if "g" in state else state)["model"], True

@@ -1,18 +1,23 @@
-"""Training entry points of the GPT, the diffusion decoder and the codec
-GAN, port of ttts_tpu/train/mains.py (46-132, 133-185, 215-259, 296-464):
+"""Training entry points of every model, port of ttts_tpu/train/mains.py:
 
-  python -m ttts_tpu_torch.train.mains gpt       --manifest data.jsonl [--config cfg.json]
-  python -m ttts_tpu_torch.train.mains diffusion --manifest data.jsonl --gpt-ckpt logs/ckpt
-  python -m ttts_tpu_torch.train.mains vqvae     --manifest wavs.jsonl
+  python -m ttts_tpu_torch.train.mains gpt        --manifest data.jsonl [--config cfg.json]
+  python -m ttts_tpu_torch.train.mains diffusion  --manifest data.jsonl --gpt-ckpt logs/ckpt
+  python -m ttts_tpu_torch.train.mains vqvae      --manifest wavs.jsonl
+  python -m ttts_tpu_torch.train.mains clvp       --manifest data.jsonl
+  python -m ttts_tpu_torch.train.mains classifier --clean clean.txt --noise noise.txt
 
 --logs sets the logs folder (checkpoints under <logs>/ckpt, scalars under
 <logs>/tb, train.log). --gpt-ckpt is a checkpoint directory of this package's
 GPT training or a release `.npz` (export_release). Training runs on the
 card unless --device cpu is given; on the card the GPT and diffusion
 forwards compute in bf16 under autocast over f32 weights (cfg.train.amp),
-as the JAX package's `_amp_dtype` does on an accelerator. The codec GAN
-trains in f32, as JAX's train_vqvae does, with TF32 off. clvp and
-classifier training are not ported yet (ROADMAP.md queue 1, item 7).
+as the JAX package's `_amp_dtype` does on an accelerator; so do the CLVP's
+x-transformers encoders. The codec GAN and the classifier train in f32, as
+JAX's do, with TF32 off. The CLVP trains on `.vq` sidecars (CLVPDataset),
+the classifier on lists of clean and noise wavs or directories of their
+`.mel` sidecars (PreprocessedMelDataset); its checkpoints feed
+`prepare.misc classify`, whose noise_files.txt feeds `prepare.pipeline
+filter-noise`.
 """
 
 from __future__ import annotations
@@ -27,11 +32,17 @@ import numpy as np
 import torch
 
 from ttts_tpu_torch.config import TTTSConfig, default_config, load_config
-from ttts_tpu_torch.data.datasets import DiffusionDataset, GptTtsDataset, VQGANDataset
+from ttts_tpu_torch.data.datasets import (
+    CLVPDataset,
+    DiffusionDataset,
+    GptTtsDataset,
+    PreprocessedMelDataset,
+    VQGANDataset,
+)
 from ttts_tpu_torch.data.loader import DataLoader, EpochLoader
 from ttts_tpu_torch.data.sampler import DistributedBucketSampler
-from ttts_tpu_torch.infer_utils import load_state_dict, prepare_device
-from ttts_tpu_torch.train.checkpoints import CheckpointManager
+from ttts_tpu_torch.infer_utils import prepare_device
+from ttts_tpu_torch.train.checkpoints import trained_state_dict
 from ttts_tpu_torch.train.state import (
     GanState,
     TrainState,
@@ -39,10 +50,14 @@ from ttts_tpu_torch.train.state import (
     make_gan_adam,
     with_accumulation,
 )
-from ttts_tpu_torch.train.steps import diffusion_train_step, gpt_train_step, vqvae_train_step
+from ttts_tpu_torch.train.steps import (
+    classifier_train_step,
+    clvp_train_step,
+    diffusion_train_step,
+    gpt_train_step,
+    vqvae_train_step,
+)
 from ttts_tpu_torch.train.trainer import Trainer
-
-NOT_PORTED = ("clvp", "classifier")
 
 
 def _amp_dtype(cfg: TTTSConfig, device: torch.device) -> Optional[torch.dtype]:
@@ -104,11 +119,12 @@ def _adamw(cfg: TTTSConfig, full: bool):
     return lambda ps: with_accumulation(fn(ps), t.accumulate_num)
 
 
-def _trainer(cfg, step, state, data, logs_folder, device) -> Trainer:
+def _trainer(cfg, step, state, data, logs_folder, device, **hooks) -> Trainer:
+    """The Trainer with the config's cadences; `hooks`: eval_fn, eval_freq."""
     train_steps, save_freq, log_every = _cadence(cfg)
     trainer = Trainer(step, state, data, logs_folder or cfg.train.logs_folder, train_steps,
                       save_freq, cfg.train.keep_ckpts, log_every=log_every,
-                      seed=cfg.train.seed, mesh=cfg.mesh, device=device)
+                      seed=cfg.train.seed, mesh=cfg.mesh, device=device, **hooks)
     trainer.maybe_resume()
     return trainer
 
@@ -137,9 +153,12 @@ def train_gpt(cfg: TTTSConfig, manifest: str, logs_folder: Optional[str] = None,
 
 
 def diffusion_trainer(cfg: TTTSConfig, manifest: str, gpt_state_dict: Dict,
-                      logs_folder: Optional[str] = None, device="cuda") -> Trainer:
+                      logs_folder: Optional[str] = None, device="cuda", eval_fn=None,
+                      eval_freq: Optional[int] = None) -> Trainer:
     """The diffusion decoder's Trainer over a frozen GPT with the weights of
-    `gpt_state_dict`, resumed from its latest checkpoint if any."""
+    `gpt_state_dict`, resumed from its latest checkpoint if any; `eval_fn`
+    (e.g. eval_hooks.make_diffusion_eval_fn's) runs every `eval_freq`
+    steps (default save_freq)."""
     from ttts_tpu_torch.diffusion.gaussian import GaussianDiffusion, get_named_beta_schedule
     from ttts_tpu_torch.models.diffusion_net import AA_diffusion
     from ttts_tpu_torch.models.gpt import UnifiedVoice
@@ -161,12 +180,68 @@ def diffusion_trainer(cfg: TTTSConfig, manifest: str, gpt_state_dict: Dict,
     step = functools.partial(diffusion_train_step, diffuser=diffuser, gpt_model=gpt_model,
                              unconditioned_percentage=cfg.train.unconditioned_percentage,
                              amp_dtype=_amp_dtype(cfg, device))
-    return _trainer(cfg, step, state, data, logs_folder, device)
+    return _trainer(cfg, step, state, data, logs_folder, device, eval_fn=eval_fn,
+                    eval_freq=eval_freq)
 
 
 def train_diffusion(cfg: TTTSConfig, manifest: str, gpt_state_dict: Dict,
                     logs_folder: Optional[str] = None, device="cuda") -> TrainState:
     return diffusion_trainer(cfg, manifest, gpt_state_dict, logs_folder, device).train()
+
+
+def clvp_trainer(cfg: TTTSConfig, manifest: str, logs_folder: Optional[str] = None,
+                 device="cuda") -> Trainer:
+    """The CLVP's Trainer (mains.py:187-212): batches bucketed over the
+    speech-code counts (buckets of 64 up to 640), AdamW with the config's lr
+    and warmup under accumulation, bf16 autocast on the card; resumed from
+    its latest checkpoint if any."""
+    from ttts_tpu_torch.models.clvp import CLVP
+
+    device = prepare_device(device)
+    ds = CLVPDataset(manifest)
+    data = _bucketed_batches(ds, cfg.train.batch_size, cfg.train.seed,
+                             boundaries=range(0, 641, 64))
+    model = _build(CLVP, cfg.clvp, cfg.train.seed, device)
+    state = TrainState.create(model, _adamw(cfg, full=False))
+    step = functools.partial(clvp_train_step, amp_dtype=_amp_dtype(cfg, device))
+    return _trainer(cfg, step, state, data, logs_folder, device)
+
+
+def train_clvp(cfg: TTTSConfig, manifest: str, logs_folder: Optional[str] = None,
+               device="cuda") -> TrainState:
+    return clvp_trainer(cfg, manifest, logs_folder, device).train()
+
+
+def classifier_trainer(cfg: TTTSConfig, clean_list: str, noise_list: str,
+                       logs_folder: Optional[str] = None, device="cuda") -> Trainer:
+    """The audio-quality classifier's Trainer (mains.py:261-293;
+    ttts/classifier/train.py:36-120): shuffled batches of the clean / noise
+    mel sidecars cropped to cfg.classifier.pad_to_mel_frames (one loader
+    worker, so the crops are drawn in order), AdamW lr 3e-4, betas (0.9,
+    0.9999), weight decay 0.01, clip 1.0, no warmup and no accumulation, in
+    f32; train_steps and save_freq as the config states them; resumed from
+    its latest checkpoint if any."""
+    from ttts_tpu_torch.models.classifier import AudioMiniEncoderWithClassifierHead
+
+    device = prepare_device(device)
+    t = cfg.train
+    ds = PreprocessedMelDataset(clean_list, noise_list, pad_to=cfg.classifier.pad_to_mel_frames,
+                                spec_dim=cfg.classifier.spec_dim,
+                                rng=np.random.default_rng(t.seed))
+    data = _simple_batches(ds, t.batch_size, t.seed, num_workers=1)
+    model = _build(AudioMiniEncoderWithClassifierHead, cfg.classifier, t.seed, device)
+    state = TrainState.create(model, lambda ps: make_adamw(
+        ps, 3e-4, warmup_steps=0, betas=(0.9, 0.9999), weight_decay=0.01, grad_clip=1.0))
+    trainer = Trainer(classifier_train_step, state, data, logs_folder or t.logs_folder,
+                      t.train_steps, t.save_freq, t.keep_ckpts, seed=t.seed, mesh=cfg.mesh,
+                      device=device)
+    trainer.maybe_resume()
+    return trainer
+
+
+def train_classifier(cfg: TTTSConfig, clean_list: str, noise_list: str,
+                     logs_folder: Optional[str] = None, device="cuda") -> TrainState:
+    return classifier_trainer(cfg, clean_list, noise_list, logs_folder, device).train()
 
 
 def make_vqvae_augment_cfg(cfg: TTTSConfig):
@@ -259,36 +334,34 @@ def load_gpt_state_dict(path: str | pathlib.Path) -> Dict:
     """The GPT weights of a checkpoint directory of this package's training
     (its `ckpt` folder or the logs folder holding it) or of a release
     `.npz`."""
-    p = pathlib.Path(path)
-    if p.suffix == ".npz":
-        return load_state_dict("gpt", p)
-    if (p / "ckpt").is_dir():
-        p = p / "ckpt"
-    _, tree = CheckpointManager(p).restore()
-    if tree is None:
-        raise FileNotFoundError(f"no checkpoint under {p}")
-    return tree["state"]["model"]
+    return trained_state_dict("gpt", path)[0]
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("model", choices=["gpt", "diffusion", "vqvae", *NOT_PORTED])
+    p.add_argument("model", choices=["gpt", "diffusion", "vqvae", "clvp", "classifier"])
     p.add_argument("--config", default=None)
     p.add_argument("--manifest", default=None)
     p.add_argument("--logs", default=None)
     p.add_argument("--gpt-ckpt", default=None,
                    help="frozen GPT: a checkpoint directory or a release .npz (diffusion)")
+    p.add_argument("--clean", default=None, help="clean wav/dir list file (classifier)")
+    p.add_argument("--noise", default=None, help="noise wav/dir list file (classifier)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.model in NOT_PORTED:
-        raise NotImplementedError(f"{args.model} training is not ported yet "
-                                  "(ROADMAP.md queue 1, item 7)")
-    if not args.manifest:
+    if args.model == "classifier":
+        if not (args.clean and args.noise):
+            p.error("--clean and --noise required")
+    elif not args.manifest:
         p.error("--manifest required")
     cfg = load_config(args.config) if args.config else default_config()
-    if args.model == "gpt":
+    if args.model == "classifier":
+        train_classifier(cfg, args.clean, args.noise, args.logs, args.device)
+    elif args.model == "gpt":
         train_gpt(cfg, args.manifest, args.logs, args.device)
+    elif args.model == "clvp":
+        train_clvp(cfg, args.manifest, args.logs, args.device)
     elif args.model == "vqvae":
         train_vqvae(cfg, args.manifest, args.logs, args.device)
     else:

@@ -1,5 +1,4 @@
-"""Train steps of the GPT, the diffusion decoder and the codec GAN, port of
-ttts_tpu/train/steps.py:42-301.
+"""Train steps of every model family, port of ttts_tpu/train/steps.py.
 
   - GPT: loss = 0.01 * text CE + 1.0 * mel CE (ttts/gpt/train.py:89-136).
   - Diffusion: the frozen GPT's latent (no grad, eval mode: on the card its
@@ -12,16 +11,22 @@ ttts_tpu/train/steps.py:42-301.
     detached fake, then the generator step (mel L1 x 45, KL x 1, feature
     matching, adversarial, commit) through the *updated* discriminator; in
     f32, without a non-finite skip, as JAX's step.
+  - CLVP (ttts/clvp/train.py; steps.py:301-314): the symmetric InfoNCE of
+    the training forward (mask draws, dropout), applied with the
+    non-finite skip.
+  - Classifier (ttts/classifier/train.py; steps.py:317-326): the cross
+    entropy of the training forward (dropout), a plain update without a
+    skip, as JAX's.
 
 A step is (state, batch, key) → metrics, with `state` a TrainState updated
 in place and `key` an integer seed. Every draw of a step comes from the
 key: t, the noise, the unconditioned rows and the layer-drop choices from
-explicit torch.Generators (`diffusion_draws`, `vqvae_draws`; tests inject
-the JAX package's draws instead), dropout from the global generators
-reseeded inside the step (torch.random.fork_rng), so a step repeats exactly
-given its key. `amp_dtype` (bf16 on the card) runs the GPT and diffusion
-forwards under autocast over the f32 weights. The CLVP and classifier steps
-are not ported yet.
+explicit torch.Generators (`diffusion_draws`, `vqvae_draws`, `clvp_draws`;
+tests inject the JAX package's draws instead), dropout from the global
+generators reseeded inside the step (torch.random.fork_rng), so a step
+repeats exactly given its key. `amp_dtype` (bf16 on the card) runs the GPT,
+diffusion and CLVP forwards under autocast over the f32 weights; the
+classifier trains in f32, as JAX's (its model has no dtype).
 """
 
 from __future__ import annotations
@@ -285,3 +290,53 @@ def vqvae_train_step(state: GanState, batch, key: int, audio_cfg, c_mel: float =
         ("loss_disc", loss_disc), ("loss_gen_all", loss_gen_all), ("loss_mel", loss_mel),
         ("loss_kl", loss_kl), ("loss_fm", loss_fm), ("loss_adv", loss_adv),
         ("commit_loss", commit))}
+
+
+# --------------------------------------------------------------------- CLVP
+
+
+def clvp_draws(key: int, cfg, text_shape, speech_shape, device: torch.device) -> Dict:
+    """A CLVP step's mask draws from `key`: uniforms of the text's and the
+    speech codes' shapes, each only where its mask percentage is above 0."""
+    g = torch.Generator().manual_seed(key % (2 ** 63))
+    out = {}
+    if cfg.text_mask_percentage > 0:
+        out["text"] = torch.rand(tuple(text_shape), generator=g).to(device)
+    if cfg.voice_mask_percentage > 0:
+        out["voice"] = torch.rand(tuple(speech_shape), generator=g).to(device)
+    return out
+
+
+def clvp_loss(model, batch, draws=None) -> torch.Tensor:
+    """The training forward's symmetric InfoNCE (f32)."""
+    return model(batch["text"], batch["speech_tokens"], return_loss=True, mask_draws=draws)
+
+
+def clvp_train_step(state: TrainState, batch, key: int,
+                    amp_dtype: Optional[torch.dtype] = None, draws=None):
+    """batch: text (B, Lt), speech_tokens (B, Ls). `draws` (clvp_draws'
+    keys) replaces the key's mask draws."""
+    model = state.model.train()
+    dev = _device(model)
+    if draws is None:
+        draws = clvp_draws(key, model.cfg, batch["text"].shape, batch["speech_tokens"].shape,
+                           dev)
+    with seeded(key, dev), autocast(dev, amp_dtype):
+        loss = clvp_loss(model, batch, draws)
+    norm, finite, _ = apply_gradients_safe(state, _grads(loss, state.params))
+    return {"loss": loss.detach(), "grad_norm": norm,
+            "nonfinite_skipped": 0.0 if finite else 1.0}
+
+
+# --------------------------------------------------------------- classifier
+
+
+def classifier_train_step(state: TrainState, batch, key: int):
+    """batch: mel (B, T, spec_dim), labels (B,). One update, whatever the
+    gradients hold (no non-finite skip, as JAX's step)."""
+    model = state.model.train()
+    with seeded(key, _device(model)):
+        loss = model(batch["mel"], labels=batch["labels"])
+    state.opt.update(_grads(loss, state.params))
+    state.step += 1
+    return {"loss": loss.detach()}

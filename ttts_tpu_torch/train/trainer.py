@@ -1,9 +1,10 @@
 """The training loop, port of ttts_tpu/train/trainer.py: cycle a host data
 iterator, run the step, log scalars every `log_every`, keep-N checkpoints
 every `save_freq`, auto-resume from the latest checkpoint, abort (with a
-checkpoint) after a run of non-finite steps, and flush a checkpoint on
-SIGTERM. The JAX trainer's evaluation hooks (train/eval_hooks.py) are not
-ported yet.
+checkpoint) after a run of non-finite steps, flush a checkpoint on SIGTERM,
+and call an evaluation hook (`eval_fn(step, state, writer)`, see
+train/eval_hooks.py) every `eval_freq` steps (default `save_freq`), after
+the step's log and checkpoint, as the JAX trainer does.
 
 The state is a TrainState, or the codec GAN's GanState (generator and
 discriminator, checkpointed together); the Trainer reads only its
@@ -25,7 +26,7 @@ import pathlib
 import signal
 import threading
 import time
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -53,6 +54,7 @@ class Trainer:
     def __init__(self, step_fn: Callable, state: TrainState, data_iter: Iterable,
                  logs_folder: str, train_steps: int, save_freq: int = 1000,
                  keep_ckpts: int = 3, log_every: int = 100, seed: int = 1234, mesh=None,
+                 eval_fn: Optional[Callable] = None, eval_freq: Optional[int] = None,
                  max_consecutive_nonfinite: int = 25, device=None):
         if mesh_devices(mesh) > 1:
             raise NotImplementedError(
@@ -64,6 +66,8 @@ class Trainer:
         self.train_steps = train_steps
         self.save_freq = save_freq
         self.log_every = log_every
+        self.eval_fn = eval_fn
+        self.eval_freq = eval_freq or save_freq
         self.device = torch.device(device) if device is not None else state.params[0].device
         self.logs_folder = pathlib.Path(logs_folder)
         self.writer = SummaryWriter(self.logs_folder / "tb")
@@ -171,6 +175,8 @@ class Trainer:
                 self.logger.info("step %d %s", self.step, metrics)
             if self.step % self.save_freq == 0:
                 self.save()
+            if self.eval_fn is not None and self.step % self.eval_freq == 0:
+                self.eval_fn(self.step, self.state, self.writer)
         if self.ckpt.latest_step() != self.step:
             self.save()
         return self.state

@@ -1,10 +1,16 @@
 """Metrics and logging, port of ttts_tpu/utils/logging.py.
 
-`SummaryWriter` keeps the reference's `summarize` API but writes scalars
-only, as JSON lines (`scalars.jsonl`: {"step", "wall", name: value}) in its
-directory: the card's machine has no tensorboard(X) or matplotlib, so there
-are no event files, histograms, images or audio. `get_logger` is the JAX
-package's file + console logger.
+`SummaryWriter.summarize` has the JAX writer's signature (scalars,
+histograms, images, audios, audio_sampling_rate) but writes plain files, as
+the card's machine has no tensorboard(X) or matplotlib:
+  - scalars as JSON lines in `logdir/scalars.jsonl` ({"step", "wall",
+    name: value});
+  - each histogram and image as `logdir/<tag>/<step>.npy` (the array the
+    JAX writer hands tensorboardX);
+  - each audio as a 16-bit `logdir/<tag>/<step>.wav` written by save_wav.
+`plot_spectrogram_to_numpy` (matplotlib) is not ported: the eval hooks hand
+the writer the mel arrays themselves. `get_logger` is the JAX package's
+file + console logger.
 """
 
 from __future__ import annotations
@@ -16,22 +22,40 @@ import sys
 import time
 from typing import Dict, Optional
 
+import numpy as np
+
 
 class SummaryWriter:
-    """Scalars as JSON lines in `logdir/scalars.jsonl`."""
+    """Scalars as JSON lines in `logdir/scalars.jsonl`; arrays and audio as
+    files under `logdir/<tag>/<step>`."""
 
     def __init__(self, logdir: str | pathlib.Path):
-        self.path = pathlib.Path(logdir) / "scalars.jsonl"
-        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.logdir = pathlib.Path(logdir)
+        self.path = self.logdir / "scalars.jsonl"
+        self.logdir.mkdir(parents=True, exist_ok=True)
         self._f = open(self.path, "a", encoding="utf-8")
 
-    def summarize(self, global_step: int, scalars: Optional[Dict[str, float]] = None, **_):
-        """Writes `scalars`; the JAX writer's histograms, images and audios
-        are accepted and dropped (no renderer here)."""
-        row = {"step": int(global_step), "wall": time.time()}
-        row.update({k: float(v) for k, v in (scalars or {}).items()})
-        self._f.write(json.dumps(row) + "\n")
-        self._f.flush()
+    def _file(self, tag: str, step: int, suffix: str) -> pathlib.Path:
+        d = self.logdir / tag
+        d.mkdir(parents=True, exist_ok=True)
+        return d / f"{int(step)}{suffix}"
+
+    def summarize(self, global_step: int, scalars: Optional[Dict[str, float]] = None,
+                  histograms: Optional[Dict] = None, images: Optional[Dict] = None,
+                  audios: Optional[Dict] = None, audio_sampling_rate: int = 24000):
+        if scalars:
+            row = {"step": int(global_step), "wall": time.time()}
+            row.update({k: float(v) for k, v in scalars.items()})
+            self._f.write(json.dumps(row) + "\n")
+            self._f.flush()
+        for tag, v in {**(histograms or {}), **(images or {})}.items():
+            np.save(self._file(tag, global_step, ".npy"), np.asarray(v))
+        if audios:
+            from ttts_tpu_torch.data.audio import save_wav
+
+            for tag, v in audios.items():
+                save_wav(self._file(tag, global_step, ".wav"),
+                         np.asarray(v, np.float32).reshape(-1), audio_sampling_rate)
 
     def close(self):
         self._f.close()

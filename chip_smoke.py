@@ -122,7 +122,29 @@ Phases, one printed line each, any failure raising (non-zero exit):
       the three against its plain version at every shape the hook gave it,
       the largest a `<kernel>_eval_hook` row of the kernel table; its ms),
       and its 10-step mel and waveform against the f32 CPU hook's with shared
-      noise.
+      noise;
+  (n) the model library at full width, seeded weights (attention output
+      projections non-zero), four seeded 5 s voices: RVQ1 at its defaults
+      (spec 1025 of the 32 kHz voices at n_fft 2048, hop 640: 250 frames a
+      clip, 500 rows of 1024 codes of D=1024 a search) through one training
+      forward on a seeded (4, 250, 1024) distillation target (the k-means
+      init, then the search), extract_code, decode of its codes and infer;
+      DiscreteVAE at its defaults (512 codes of D=512) on the voices'
+      tacotron mel at 22.05 kHz through one training forward,
+      get_codebook_indices and decode_codes. Each call's VQ searches equal
+      the VQ kernel's launches (2 in a training forward: the k-means
+      residual pass, then the search), the plain version never called, no
+      other kernel; median ms of each call. The card against the f32 CPU
+      path with the trained codebooks: codes equal but for near-ties of the
+      CPU's two nearest distances (LIB_TIE, counted), the style, the
+      semantic content, clip 0's infer / decode waveforms (shared noise) and
+      the DVAE's decoded mel within LIB_TOL. The VQ kernel against its plain
+      version at every shape the calls gave it and at D=1024 with N=1 and
+      N=41 (phase (c)'s reading), the RVQ1 and DVAE shapes rows of the
+      kernel table (vq_nearest_rvq1, vq_nearest_dvae) with the device time
+      of kernel, plain version and cuBLAS's x @ cb.T; then one DiffusionTts
+      training forward and backward at its defaults with injected draws:
+      finite loss and grad norm, no kernel launched.
 The last two lines are the kernel table as JSON and then
 {"ok": true, "device": {...}}. Imports no JAX; needs a CUDA card.
 """
@@ -317,12 +339,12 @@ def _timed(rows, name, shape, m, metric, tol, run, run_plain, run_library, work)
         raise AssertionError(f"{name} {shape}: {metric} {m[metric]:.3e} > {tol}")
 
 
-def _vq_inputs(g, n, bins):
-    """x (n, 192), codebook (bins, 192) with an exact tie: code 7 = code 3 =
+def _vq_inputs(g, n, bins, d: int = 192):
+    """x (n, d), codebook (bins, d) with an exact tie: code 7 = code 3 =
     x[0], so both versions must pick index 3 for row 0."""
-    cb = torch.randn(bins, 192, generator=g, device="cuda")
+    cb = torch.randn(bins, d, generator=g, device="cuda")
     cb[7] = cb[3]
-    x = torch.randn(n, 192, generator=g, device="cuda")
+    x = torch.randn(n, d, generator=g, device="cuda")
     x[0] = cb[3]
     return x, cb
 
@@ -1331,7 +1353,9 @@ def phase_reference(gpu):
 # every resblock call meets; the mean dropped from gn_qkv's multiply-add;
 # rank 7's codes dropped from the VQ cluster merge. Copy 2: ||e||^2 dropped
 # from the VQ distance (each VQ fault meets every VQ call, so each has its
-# own copy).
+# own copy). Each VQ fault is read at the codec's D=192 and at phase (n)'s
+# RVQ1 (D=1024) and DVAE (D=512) shapes, but rank 7's, which 512 codes never
+# reach (they fill ranks 0-3 of the 8 slices of 128).
 FAULTS = (  # (copy, file, correct text, planted text)
     (0, "attention.cu", "k0 == q0 && j > i)", "k0 == q0 && j > i + 1)"),
     (0, "attention.cu", "return k0 + j < T ? x : -INFINITY;", "return x;"),
@@ -1375,19 +1399,26 @@ def _planted_readings(copy: int, g) -> list:
         args = _gn_qkv_args(g, 2, 1024, 512, 1.0, 2.0)
         return compare(wrapper("gn_qkv")(*args), fused_gn_qkv_plain(*args))
 
-    def vq():
-        x, cb = _vq_inputs(g, 500, 1024)
+    def vq(n=500, bins=1024, d=192):
+        x, cb = _vq_inputs(g, n, bins, d)
         return _vq_reading(x, cb, wrapper("vq_nearest")(x, cb))
 
+    def vq_shapes(fault: str, dvae: bool = True) -> list:
+        """The fault read at the codec's shape, RVQ1's (phase (n)) and, with
+        `dvae`, the DVAE's."""
+        shapes = ((500, 1024, 192), (500, 1024, 1024)) + (((212, 512, 512),) if dvae else ())
+        return [(f"{fault}, N={n} bins={bins} D={d}", "wrong", 0, vq(n, bins, d))
+                for n, bins, d in shapes]
+
     if copy == 2:
-        return [("||e||^2 dropped from the VQ distance, N=500 bins=1024", "wrong", 0, vq())]
+        return vq_shapes("||e||^2 dropped from the VQ distance")
     if copy == 1:
         return [("FiLM scale a2 dropped, resblock B=2 T=1600 C=512", "excess", RES_TOL,
                  resblock(2, 1600)),
                 ("GN mean dropped from the multiply-add, gn_qkv B=2 T=1024 C=512", "excess",
-                 RES_TOL, gn_qkv()),
-                ("rank 7's codes dropped from the VQ cluster merge, N=500 bins=1024", "wrong",
-                 0, vq())]
+                 RES_TOL, gn_qkv())] + vq_shapes(
+                     # 512 codes fill ranks 0-3 of a cluster's 8 slices of 128
+                     "rank 7's codes dropped from the VQ cluster merge", dvae=False)
     (q, k, v), (q2, k2, v2), (q3, k3, v3) = (
         torch.randn(b, t, 3, h, d, generator=g, device="cuda").to(bf).unbind(2)
         for b, t, h, d in ((4, 192, 8, 64), (4, 32, 16, 64), (2, 128, 16, 32)))
@@ -1410,8 +1441,7 @@ def _planted_readings(copy: int, g) -> list:
          RES_TOL, resblock(1, 1600)),
         ("GN scale g dropped from the multiply-add, gn_qkv B=2 T=1024 C=512", "excess",
          RES_TOL, gn_qkv()),
-        ("VQ ties to the higher index, N=500 bins=1024", "wrong", 0, vq()),
-    ]
+    ] + vq_shapes("VQ ties to the higher index")
 
 
 def phase_planted() -> None:
@@ -1467,7 +1497,8 @@ def device_us(fn, reps: int = 20) -> str:
     then each device kernel's us and launches per call (a count below the
     wrapper's launches would show events the profiler dropped). Every `fn`
     here launches at least one device kernel per call, so a session that
-    caught fewer than `reps` device events lost some and is taken again."""
+    caught fewer than `reps` device events lost some and is taken again;
+    after three such sessions the CUDA events' time stands in."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -1482,7 +1513,8 @@ def device_us(fn, reps: int = 20) -> str:
         if sum(n for n, _ in by_kernel.values()) >= reps:
             break
     else:
-        return "not measured (the profiler caught too few device events in 3 sessions)"
+        return ("not measured by the profiler (too few device events in 3 sessions); CUDA "
+                f"events {median_ms(fn, reps=reps) * 1e3:.1f} us per call, host work included")
     total = sum(us for _, us in by_kernel.values()) / reps
     parts = ", ".join(f"{name[:28]} {us / reps:.1f} us x{n / reps:g}"
                       for name, (n, us) in by_kernel.items())
@@ -2011,26 +2043,23 @@ def _gan_data(root, rows: int = 32, seed: int = 5) -> str:
     return str(root / "wavs.jsonl")
 
 
-class _VqWatch:
-    """Within the block, per step of `trainer` (a wrapper of its step): the
-    calls of the quantizer's search dispatch (vq.nearest, whose (N, D) input
-    shapes are kept), the kernel's launches (its wrapper's count) and the
-    calls of its plain version (spies on the module's names, which the
-    dispatch looks up at each call)."""
-
-    def __init__(self, trainer):
-        self.trainer, self.per_step, self.shapes = trainer, [], set()
+class _VqSpy:
+    """Within the block: the calls of the VQ search dispatch (vq.nearest),
+    their (N, bins, D) shapes and the last call's inputs, and the calls of
+    its plain version (spies on the module's names, which the dispatch
+    looks up at each call)."""
 
     def __enter__(self):
         from ttts_tpu_torch.ops.cuda import vq
 
-        self.vq, self.calls, self.plain = vq, 0, 0
+        self.vq, self.calls, self.plain, self.shapes, self.last = vq, 0, 0, set(), None
         self.real = (vq.nearest, vq.vq_nearest_plain)
         nearest, plain = self.real
 
         def spy_nearest(x, cb):
             self.calls += 1
-            self.shapes.add(tuple(x.shape))
+            self.shapes.add((x.shape[0], cb.shape[0], x.shape[1]))
+            self.last = (x, cb)
             return nearest(x, cb)
 
         def spy_plain(x, cb):
@@ -2038,20 +2067,34 @@ class _VqWatch:
             return plain(x, cb)
 
         vq.nearest, vq.vq_nearest_plain = spy_nearest, spy_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.vq.nearest, self.vq.vq_nearest_plain = self.real
+
+
+class _VqWatch(_VqSpy):
+    """_VqSpy within the block, and per step of `trainer` (a wrapper of its
+    step) the searches, the kernel's launches (its wrapper's count) and the
+    plain version's calls."""
+
+    def __init__(self, trainer):
+        self.trainer, self.per_step = trainer, []
+
+    def __enter__(self):
+        super().__enter__()
         step_fn = self.trainer.step_fn
 
         def counted(state, batch, key):
-            before = (self.calls, vq.vq_nearest.launches, self.plain)
+            before = (self.calls, self.vq.vq_nearest.launches, self.plain)
             out = step_fn(state, batch, key)
-            self.per_step.append((self.calls - before[0], vq.vq_nearest.launches - before[1],
+            self.per_step.append((self.calls - before[0],
+                                  self.vq.vq_nearest.launches - before[1],
                                   self.plain - before[2]))
             return out
 
         self.trainer.step_fn = counted
         return self
-
-    def __exit__(self, *exc):
-        self.vq.nearest, self.vq.vq_nearest_plain = self.real
 
 
 def _run_gan(make, what: str) -> dict:
@@ -2196,14 +2239,13 @@ def _check_gan_vq(rows, shapes, card: str) -> None:
     function)."""
     from ttts_tpu_torch.ops.cuda.vq import vq_nearest_plain
 
-    n, d = max(shapes)
-    bins = 1024
+    n, bins, d = max(shapes)
     fn = wrapper("vq_nearest")
     g = torch.Generator("cuda").manual_seed(13)
-    x, cb = _vq_inputs(g, n, bins)
+    x, cb = _vq_inputs(g, n, bins, d)
     m = _vq_reading(x, cb, fn(x, cb))
     torch.cuda.synchronize()
-    log(f"(l) VQ kernel shapes of the GAN steps (N, D): {sorted(shapes)}")
+    log(f"(l) VQ kernel shapes of the GAN steps (N, bins, D): {sorted(shapes)}")
     _timed(rows, "vq_nearest_gan_train",
            f"N={n} bins={bins} D={d} f32 (GAN train step): mismatches {m['mism']} (near-ties "
            f"{m['near']}; tolerance: a mismatch only on a <=1e-5 relative distance tie, the exact "
@@ -2739,6 +2781,300 @@ def phase_recipe(card: str, rows: list, trained: dict, codec_root) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------- (n)
+
+# Phase (n)'s limit on the card against the f32 CPU path at full width
+# (waveforms, the style vector, the semantic content, the DVAE's mel), 1e-5
+# relative: on an H100 80GB HBM3 (700 W) the largest reading was 1.22e-06
+# (RVQ1's semantic content; the waveforms 2.55e-07, the DVAE's mel
+# 1.48e-07), the same in each run, 8x under it and 100x under phase (h)'s
+# CODEC_TOL. Codes: equal but where the CPU's two nearest distances lie
+# within LIB_TIE relative (counted and printed; 0 so far).
+LIB_TOL, LIB_TIE = 1e-5, 1e-5
+LIB_VOICES, LIB_SECONDS = 4, 5.0
+
+
+def _lib_call(what: str, fn, searches: int, shapes: set):
+    """fn() once on the card, its VQ searches (quantizer calls of vq.nearest)
+    equal to `searches` and to the VQ kernel's launches, the plain version
+    never called, no other kernel launched; the search shapes join
+    `shapes`. → (fn's result, launches)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    with _VqSpy() as spy:
+        out = fn()
+        torch.cuda.synchronize()
+    launches = counts()
+    others = {n: c for n, c in launches.items() if n != "vq_nearest" and c}
+    log(f"(n) {what}: VQ searches {spy.calls} (expected {searches}), VQ kernel launches "
+        f"{launches['vq_nearest']}, plain version calls {spy.plain}, other kernels "
+        f"{others or 0}")
+    if spy.calls != searches or launches["vq_nearest"] != searches or spy.plain or others:
+        raise AssertionError(f"(n) {what}: {spy.calls} searches, {launches} launches, "
+                             f"{spy.plain} plain calls")
+    shapes |= spy.shapes
+    return out, launches["vq_nearest"]
+
+
+def _codes_against_cpu(what: str, got: torch.Tensor, want: torch.Tensor, x, cb) -> int:
+    """The card's codes against the CPU's (b-major, as the CPU search's rows
+    x (N, D) of codebook cb): a mismatch only where the CPU's two nearest
+    distances lie within LIB_TIE relative. → the mismatches."""
+    got, want = got.cpu().reshape(-1), want.reshape(-1)
+    mism = (got != want).nonzero().reshape(-1)
+    near = 0
+    if len(mism):
+        xs = x[mism].float()
+        dist = ((xs * xs).sum(1, keepdim=True) - 2.0 * (xs @ cb.float().T)
+                + (cb.float() * cb.float()).sum(1)[None])
+        two = dist.topk(2, dim=1, largest=False).values
+        near = int(((two[:, 1] - two[:, 0]) <= LIB_TIE * two[:, 0].abs()).sum())
+    log(f"(n) {what} codes, card vs CPU: {len(mism)}/{want.numel()} differ, {near} of them "
+        f"near-ties (the CPU's two nearest within {LIB_TIE} relative; tolerance: no other)")
+    if len(mism) != near:
+        raise AssertionError(f"(n) {what}: {len(mism) - near} codes differ beyond a near-tie")
+    return len(mism)
+
+
+def _hold_lib_vq(rows, name: str, shape, card: str) -> None:
+    """The VQ kernel against its plain version at a shape a model call gave
+    it, read as phase (c) reads VQ (a row of the kernel table as `name`),
+    timed beside cuBLAS's x @ cb.T alone (a floor, not the same function)."""
+    from ttts_tpu_torch.ops.cuda.vq import vq_nearest_plain
+
+    n, bins, d = shape
+    fn = wrapper("vq_nearest")
+    x, cb = _vq_inputs(torch.Generator("cuda").manual_seed(31 + n), n, bins, d)
+    m = _vq_reading(x, cb, fn(x, cb))
+    torch.cuda.synchronize()
+    _timed(rows, name,
+           f"N={n} bins={bins} D={d} f32 (phase (n)): mismatches {m['mism']} (near-ties "
+           f"{m['near']}; tolerance: a mismatch only on a <=1e-5 relative distance tie, the exact "
+           "tie to index 3), distance gap", m, "wrong", 0,
+           partial(fn, x, cb), partial(vq_nearest_plain, x, cb), None,
+           (2 * n * bins * d, (n * d + bins * d + n) * 4, PEAK_F32))
+    row = rows[-1]
+    log(f"(n) {name} device time (torch.profiler): kernel {device_us(row['run'])} | plain "
+        f"{device_us(row['run_plain'])} | floor, x @ cb.T alone (cuBLAS f32, TF32 off) "
+        f"{device_us(lambda: x @ cb.T)} | card {card}")
+
+
+def _vq_edges(shapes) -> None:
+    """The VQ kernel against its plain version at every (N, bins, D) the
+    phase's calls gave it and at D=1024's edges: one row (39 rows of its
+    40-row tile never written) and 41 rows (a ragged second tile)."""
+    fn = wrapper("vq_nearest")
+    for n, bins, d in sorted(shapes | {(1, 1024, 1024), (41, 1024, 1024)}):
+        x, cb = _vq_inputs(torch.Generator("cuda").manual_seed(7 + n + d), n, bins, d)
+        m = _vq_reading(x, cb, fn(x, cb))
+        log(f"(n) VQ kernel vs plain, N={n} bins={bins} D={d}: wrong {m['wrong']:g} (tol 0), "
+            f"mismatches {m['mism']} (near-ties {m['near']}), distance gap {m['max_abs']:.3e}")
+        if m["wrong"]:
+            raise AssertionError(f"(n) VQ at N={n} bins={bins} D={d}: {m}")
+
+
+def _lib_voices():
+    """The seeded 5 s voices at 32 kHz (B, T)."""
+    return torch.stack([torch.from_numpy(synthetic_voice(LIB_SECONDS, 32000, seed=30 + i))
+                        for i in range(LIB_VOICES)])
+
+
+def _rvq1_part(card: str, shapes: set) -> dict:
+    """RVQ1 at its defaults on the seeded voices: the training forward (the
+    k-means init, then the search) on a seeded distillation target, then
+    extract_code, decode of the codes and infer with the trained codebook;
+    the card against the f32 CPU path (codes of every clip; the style and
+    the semantic content; clip 0's infer and decode waveforms, shared
+    noise); median ms of each call."""
+    import copy
+
+    from ttts_tpu_torch.models.rvq1 import RVQ1
+    from ttts_tpu_torch.ops.mel import vits_spectrogram
+
+    spec = vits_spectrogram(_lib_voices(), 2048, 640, 2048).transpose(1, 2)  # (4, 250, 1025)
+    b, t = spec.shape[:2]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(21)
+        cpu = nonzero_proj_out(RVQ1()).eval()
+    gpu = copy.deepcopy(cpu).cuda()
+    g = torch.Generator().manual_seed(22)
+    hubert = torch.randn(b, t, 1024, generator=g)
+    spec_g, hubert_g = spec.cuda(), hubert.cuda()
+    out, n_train = _lib_call(
+        f"RVQ1 training forward (B={b}, T={t}: the k-means init, then the search)",
+        lambda: gpu(spec_g, hubert_g, train=True, generator=torch.Generator().manual_seed(23)),
+        2, shapes)
+    o, commit, _, stats, quantized, sem = out
+    if not all(bool(torch.isfinite(v).all()) for v in (o, commit, sem, quantized, *stats)):
+        raise AssertionError("(n) RVQ1 training forward: non-finite outputs")
+    state = gpu.quantizer.state()
+    cpu.quantizer.set_state(type(state)(*(v.cpu() for v in (
+        state.embed, state.embed_avg, state.cluster_size, state.inited))))
+    with torch.no_grad():
+        codes_g, n_extract = _lib_call(f"RVQ1 extract_code (B={b})",
+                                       lambda: gpu.extract_code(spec_g), 1, shapes)
+        wav_d, n_decode = _lib_call(f"RVQ1 decode of those codes (B={b})",
+                                    lambda: gpu.decode(codes_g.transpose(0, 1), spec_g,
+                                                       generator=torch.Generator().manual_seed(1)),
+                                    0, shapes)
+        wav_i, n_infer = _lib_call(f"RVQ1 infer (B={b})",
+                                   lambda: gpu.infer(spec_g,
+                                                     generator=torch.Generator().manual_seed(2)),
+                                   1, shapes)
+        want = (b, 2 * -(-t // 2) * 640, 1)
+        if tuple(wav_d.shape) != want or tuple(wav_i.shape) != want or not (
+                torch.isfinite(wav_d).all() and torch.isfinite(wav_i).all()):
+            raise AssertionError(f"(n) RVQ1 waveforms {tuple(wav_d.shape)}, "
+                                 f"{tuple(wav_i.shape)} (want {want})")
+        ms = {"extract_code": median_ms(lambda: gpu.extract_code(spec_g), reps=5, warmup=1),
+              "decode": median_ms(lambda: gpu.decode(codes_g.transpose(0, 1), spec_g),
+                                  reps=5, warmup=1),
+              "infer": median_ms(lambda: gpu.infer(spec_g), reps=5, warmup=1)}
+        # the card against the f32 CPU path
+        with _VqSpy() as spy:
+            codes_c = cpu.extract_code(spec)
+        mism = _codes_against_cpu("RVQ1", codes_g, codes_c, *spy.last)
+        errs = {}
+        ge_c = cpu.ref_enc(spec)
+        ge_g = gpu.ref_enc(spec_g)
+        errs["style ge"] = rel_err(ge_g, ge_c)
+        errs["semantic content"] = rel_err(gpu.semantic_enc(spec_g, g=ge_g),
+                                           cpu.semantic_enc(spec, g=ge_c))
+        noise = torch.randn(1, 2 * -(-t // 2), 192, generator=g)
+        errs["infer clip 0"] = rel_err(gpu.infer(spec_g[:1], noise=noise.cuda()),
+                                       cpu.infer(spec[:1], noise=noise))
+        c0 = codes_c[:1].transpose(0, 1)
+        errs["decode clip 0"] = rel_err(gpu.decode(c0.cuda(), spec_g[:1], noise=noise.cuda()),
+                                        cpu.decode(c0, spec[:1], noise=noise))
+    ms["training forward"] = median_ms(
+        lambda: gpu(spec_g, hubert_g, train=True, generator=torch.Generator().manual_seed(24)),
+        reps=3, warmup=1)
+    log(f"(n) RVQ1 at its defaults (spec 1025, HuBERT 1024, 768-wide text encoder, 1024 codes "
+        f"of D=1024), {b} voices of {LIB_SECONDS:g} s ({t} frames, {codes_g.shape[-1]} codes "
+        f"each): commit loss {commit.item():.4e}, semantic loss {sem.item():.4e}; median ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+        + f" (CUDA events; {card})")
+    log("(n) RVQ1 card vs f32 CPU, relative error (tol "
+        f"{LIB_TOL}): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    bad = [k for k, v in errs.items() if not v <= LIB_TOL]
+    if bad:
+        raise AssertionError(f"(n) RVQ1 card vs CPU over {LIB_TOL}: {bad}")
+    return {"launches": n_train + n_extract + n_decode + n_infer, "mismatches": mism,
+            "per_call": {"train": n_train, "extract_code": n_extract, "decode": n_decode,
+                         "infer": n_infer}}
+
+
+def _dvae_part(card: str, shapes: set) -> dict:
+    """DiscreteVAE at its defaults on the voices resampled to 22.05 kHz
+    through the tacotron mel: the training forward (the k-means init, then
+    the search), then get_codebook_indices and decode_codes; the card
+    against the f32 CPU path; median ms of each call."""
+    import copy
+
+    from ttts_tpu_torch.models.dvae import DiscreteVAE
+    from ttts_tpu_torch.ops.mel import tacotron_mel_spectrogram
+    from ttts_tpu_torch.ops.resample import resample
+
+    mel = tacotron_mel_spectrogram(resample(_lib_voices(), 32000, 22050)).transpose(1, 2)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(25)
+        cpu = DiscreteVAE().eval()
+    gpu = copy.deepcopy(cpu).cuda()
+    mel_g = mel.cuda()
+    (recon, commit, out), n_train = _lib_call(
+        f"DVAE training forward (mel {tuple(mel.shape)}: the k-means init, then the search)",
+        lambda: gpu(mel_g, train=True, generator=torch.Generator().manual_seed(26)), 2, shapes)
+    if not all(bool(torch.isfinite(v).all()) for v in (recon, commit, out)):
+        raise AssertionError("(n) DVAE training forward: non-finite outputs")
+    state = gpu.quantizer.state()
+    cpu.quantizer.set_state(type(state)(*(v.cpu() for v in (
+        state.embed, state.embed_avg, state.cluster_size, state.inited))))
+    with torch.no_grad():
+        codes_g, n_idx = _lib_call("DVAE get_codebook_indices",
+                                   lambda: gpu.get_codebook_indices(mel_g), 1, shapes)
+        rec_g, n_dec = _lib_call("DVAE decode_codes", lambda: gpu.decode_codes(codes_g), 0,
+                                 shapes)
+        ms = {"get_codebook_indices": median_ms(lambda: gpu.get_codebook_indices(mel_g),
+                                                reps=5, warmup=1),
+              "decode_codes": median_ms(lambda: gpu.decode_codes(codes_g), reps=5, warmup=1)}
+        with _VqSpy() as spy:
+            codes_c = cpu.get_codebook_indices(mel)
+        mism = _codes_against_cpu("DVAE", codes_g, codes_c, *spy.last)
+        errs = {"decode_codes": rel_err(gpu.decode_codes(codes_c.cuda()), cpu.decode_codes(codes_c)),
+                "eval forward output": rel_err(gpu(mel_g)[2], cpu(mel)[2])}
+    ms["training forward"] = median_ms(
+        lambda: gpu(mel_g, train=True, generator=torch.Generator().manual_seed(27)),
+        reps=3, warmup=1)
+    log(f"(n) DVAE at its defaults (80 mels, 512 codes of D=512, 3 stride-2 layers), "
+        f"{LIB_VOICES} voices at 22.05 kHz ({mel.shape[1]} mel frames, {codes_g.shape[1]} codes "
+        f"each): recon {recon.item():.4e}, commit {commit.item():.4e}; median ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()) + f" (CUDA events; {card})")
+    log(f"(n) DVAE card vs f32 CPU, relative error (tol {LIB_TOL}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    bad = [k for k, v in errs.items() if not v <= LIB_TOL]
+    if bad or tuple(rec_g.shape) != (LIB_VOICES, codes_g.shape[1] * 8, 80):
+        raise AssertionError(f"(n) DVAE: over {LIB_TOL} {bad}, decode {tuple(rec_g.shape)}")
+    return {"launches": n_train + n_idx + n_dec, "mismatches": mism,
+            "per_call": {"train": n_train, "get_codebook_indices": n_idx, "decode_codes": n_dec}}
+
+
+def _diffusion_tts_train(card: str) -> None:
+    """One DiffusionTts training forward and backward at its defaults on the
+    card, f32, draws injected (row 0 unconditioned, trunk layer 3 dropped):
+    finite loss and grad norm, and no kernel launched (autograd records
+    every call, so each dispatch takes its plain version)."""
+    from ttts_tpu_torch.models.diffusion_tts_v1 import DiffusionTts
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(28)
+        model = nonzero_proj_out(DiffusionTts()).cuda().train()
+    g = torch.Generator().manual_seed(29)
+    x = torch.randn(2, 200, 100, generator=g).cuda()
+    target = torch.randn(2, 200, 200, generator=g).cuda()
+    codes = torch.randint(0, 8193, (2, 50), generator=g).cuda()
+    cond = torch.randn(2, 300, 100, generator=g).cuda()
+    t = torch.tensor([10.0, 600.0], device="cuda")
+    keep = [i != 3 for i in range(len(model.layers))]
+
+    def step():
+        out, mel_pred = model(x, t, codes, cond, return_code_pred=True, train=True,
+                              uncond=torch.tensor([True, False]), layer_keep=keep)
+        loss = (out - target).square().mean() + mel_pred.square().mean()
+        grads = torch.autograd.grad(loss, [p for p in model.parameters() if p.requires_grad],
+                                    allow_unused=True)
+        return loss, torch.sqrt(sum(gr.square().sum() for gr in grads if gr is not None))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    loss, norm = step()
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in counts().items() if c}
+    ms = median_ms(step, reps=3, warmup=1)
+    log(f"(n) DiffusionTts training forward + backward at its defaults (512 wide, 8 layers, "
+        f"B=2, T=200, 50 codes): loss {loss.item():.4e}, grad norm {norm.item():.4e}, kernel "
+        f"launches {launched or 0} (expected none: autograd) | {ms:.2f} ms (CUDA events; {card})")
+    if launched or not (math.isfinite(loss.item()) and math.isfinite(norm.item())):
+        raise AssertionError(f"(n) DiffusionTts training: loss {loss.item()}, norm "
+                             f"{norm.item()}, launches {launched}")
+
+
+def phase_library(card: str, rows: list) -> dict:
+    """(n) The model library at full width: RVQ1 and DiscreteVAE (the VQ
+    kernel at D=1024 and D=512), then DiffusionTts's training step. →
+    launches of the VQ kernel in each model's calls."""
+    t_phase = time.perf_counter()
+    shapes: set = set()
+    rvq1 = _rvq1_part(card, shapes)
+    dvae = _dvae_part(card, shapes)
+    log(f"(n) VQ search shapes (N, bins, D) of the phase's calls: {sorted(shapes)}")
+    _vq_edges(shapes)
+    for name, d in (("vq_nearest_rvq1", 1024), ("vq_nearest_dvae", 512)):
+        _hold_lib_vq(rows, name, max(s for s in shapes if s[2] == d), card)
+    _diffusion_tts_train(card)
+    log(f"(n) phase (n) {time.perf_counter() - t_phase:.1f} s | card {card}")
+    return {"rvq1": rvq1, "dvae": dvae}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2764,6 +3100,8 @@ def main() -> int:
         recipe = phase_recipe(card, rows, trained, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+    torch.cuda.empty_cache()
+    library = phase_library(card, rows)
     table = []
     for name, (_, _, _, source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
@@ -2790,6 +3128,8 @@ def main() -> int:
     extra = [("vq_nearest_gan_train", "vq_nearest", gan["launches"],
               {"launches_vqvae_train_step": gan["per_step"]["vq_nearest"]})]
     extra += [(f"{n}_eval_hook", n, recipe["eval_hook"][n], {}) for n in HELD]
+    extra += [(f"vq_nearest_{m}", "vq_nearest", library[m]["launches"],
+               {"launches_per_call": library[m]["per_call"]}) for m in ("rvq1", "dvae")]
     for row_name, name, n_launches, more in extra:
         row = [r for r in rows if r["name"] == row_name][-1]
         _, _, _, source, replaces = KERNELS[name]

@@ -40,6 +40,18 @@ def test_config_defaults_equal(name):
     assert dataclasses.asdict(pcls()) == dataclasses.asdict(jcls())
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_to_dict_equal(name):
+    """The port's to_dict gives JAX's dict for each config class, at its
+    defaults and at TINY's value where TINY has one."""
+    jcls, pcls = getattr(jconfig, name), getattr(pconfig, name)
+    assert pconfig.to_dict(pcls()) == jconfig.to_dict(jcls())
+    tiny = [getattr(JAX_TINY, f.name) for f in dataclasses.fields(JAX_TINY)
+            if type(getattr(JAX_TINY, f.name)).__name__ == name]
+    for cfg in tiny + ([JAX_TINY] if name == "TTTSConfig" else []):
+        assert pconfig.to_dict(to_port(cfg)) == jconfig.to_dict(cfg)
+
+
 def test_default_config_and_tiny():
     assert dataclasses.asdict(pconfig.default_config()) == dataclasses.asdict(
         jconfig.default_config())

@@ -149,7 +149,16 @@ def test_conditioning_free_and_precomputed(tts_v1):
 
 
 def test_training_forward_raises(tts_v1):
+    """The training forward is ported (tests/test_torch_blocks_extras.py
+    holds it to JAX's with the draws injected); without injected draws it
+    takes them from the generator: the same seed gives the same output,
+    and train=False ignores injected draws."""
     _, _, port = tts_v1
-    x, t, latent, cond_mel = _inputs(0)
-    with pytest.raises(NotImplementedError):
-        port(*map(torch.from_numpy, (x, t, latent, cond_mel)), train=True)
+    args = list(map(torch.from_numpy, _inputs(0)))
+    with torch.no_grad():
+        a, b = (port(*args, train=True, generator=torch.Generator().manual_seed(4))
+                for _ in range(2))
+        plain = port(*args)
+        ignored = port(*args, uncond=torch.tensor([True, True]), layer_keep=[False] * 5)
+    assert torch.equal(a, b) and torch.isfinite(a).all()
+    assert torch.equal(plain, ignored)

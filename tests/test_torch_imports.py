@@ -50,6 +50,32 @@ def test_scan_covers_the_recipe_modules():
     assert all(PKG / p in FILES for p in SLICE)
 
 
+# the model library and the host tools around third-party code
+LIBRARY = ["models/rvq1.py", "models/dvae.py", "models/group_quantizer.py", "models/flows.py",
+           "models/attentions_extras.py", "data/prepare/hubert.py", "data/spider.py",
+           "text/alignment.py"]
+
+
+@pytest.mark.parametrize("path", LIBRARY)
+def test_scan_covers_the_model_library(path):
+    """The scan covers each module, and importing it needs neither
+    transformers nor matplotlib (both are imported at first use)."""
+    import importlib
+    import sys
+
+    assert PKG / path in FILES
+    name = "ttts_tpu_torch." + path[:-3].replace("/", ".")
+    saved = {m: sys.modules.pop(m) for m in list(sys.modules)
+             if m == name or m.split(".")[0] in ("transformers", "matplotlib")}
+    try:
+        sys.modules["transformers"] = sys.modules["matplotlib"] = None
+        importlib.import_module(name)
+    finally:
+        for m in ("transformers", "matplotlib", name):
+            sys.modules.pop(m, None)
+        sys.modules.update(saved)
+
+
 @pytest.mark.parametrize("model", ["clvp", "classifier"])
 def test_clvp_and_classifier_training_entry_points(model, tmp_path):
     """`python -m ttts_tpu_torch.train.mains clvp|classifier` parse and reach

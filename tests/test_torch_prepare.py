@@ -32,12 +32,13 @@ import ttts_tpu.data.audio as jaudio
 import ttts_tpu.train.checkpoints as jcheckpoints
 from test_five_stage_recipe import PINYIN, RECIPE_CFG, TEXTS, _make_raw_corpus
 from test_torch_codec_synth import random_codec_variables, seeded_variables
-from ttts_tpu.config import ClassifierConfig, to_dict
+from ttts_tpu.config import ClassifierConfig
 from ttts_tpu.data.prepare import misc as jmisc
 from ttts_tpu.data.prepare import pipeline as jpipeline
 from ttts_tpu.models.classifier import AudioMiniEncoderWithClassifierHead as JClassifier
 from ttts_tpu.text.alignment import parse_redactions as jparse_redactions
 from ttts_tpu_torch import porting
+from ttts_tpu_torch.config import to_dict
 from ttts_tpu_torch.data import audio
 from ttts_tpu_torch.data.manifest import load_sidecar, read_manifest, write_manifest
 from ttts_tpu_torch.data.prepare import misc, pipeline

@@ -23,7 +23,8 @@ import json
 import numpy as np
 
 from test_five_stage_recipe import PINYIN, RECIPE_CFG, SR, TEXTS, _make_raw_corpus
-from ttts_tpu.config import ClassifierConfig, to_dict
+from ttts_tpu.config import ClassifierConfig
+from ttts_tpu_torch.config import to_dict
 from test_torch_vqvae_train import torch_threads  # noqa: F401 (autouse)
 from ttts_tpu_torch.data.manifest import load_sidecar, read_manifest, write_manifest
 from ttts_tpu_torch.data.prepare import misc, pipeline

@@ -264,6 +264,11 @@ def default_config() -> TTTSConfig:
     return TTTSConfig()
 
 
+def to_dict(cfg) -> dict:
+    """A config dataclass → nested plain dicts (ttts_tpu.config.to_dict)."""
+    return dataclasses.asdict(cfg)
+
+
 def _from_dict(cls, data: dict):
     """A config dataclass from a plain dict: strict keys, nested configs
     from nested dicts, lists as tuples (ttts_tpu.config._from_dict)."""

@@ -142,6 +142,27 @@ class LayerNorm(nn.Module):
         return F.layer_norm(x, self.gamma.shape, self.gamma, self.beta, 1e-6)
 
 
+# LayerNorm over the channel axis (modules.LayerNorm:20; ttts_tpu's
+# LayerNorm1d): the same module under JAX's name
+LayerNorm1d = LayerNorm
+
+
+class Snake(nn.Module):
+    """x + 1/(alpha + 1e-9) * sin^2(alpha x) with a per-channel `alpha`
+    (activations.Snake:9-60): ones, or zeros stored as log(alpha) with
+    `alpha_logscale`."""
+
+    def __init__(self, channels: int, alpha_logscale: bool = False):
+        super().__init__()
+        self.alpha_logscale = alpha_logscale
+        self.alpha = nn.Parameter(torch.zeros(channels) if alpha_logscale
+                                  else torch.ones(channels))
+
+    def forward(self, x):
+        alpha = torch.exp(self.alpha) if self.alpha_logscale else self.alpha
+        return x + (1.0 / (alpha + 1e-9)) * torch.sin(alpha * x) ** 2
+
+
 class SnakeBeta(nn.Module):
     """x + 1/(beta + 1e-9) * sin^2(alpha x), per-channel log-scale alpha, beta
     (stored as `alpha`, `beta` — the log values, reference naming)."""
@@ -360,6 +381,41 @@ class MelStyleEncoder(nn.Module):
         return (x * mask).sum(dim=1) / mask.sum(dim=1).clamp_min(1.0)
 
 
+class MelStyleEncoderVAE(nn.Module):
+    """Variational style encoder (modules.MelStyleEncoderVAE:767-816):
+    MelStyleEncoder → (mu, logvar) heads fc1, fc2 → z → style embedding fc3,
+    with the KL penalty against a standard normal in the reference's
+    convention (sigma = exp(logvar)). In train mode z = mu + noise * sigma,
+    with `noise` injected (the shape of mu) or drawn from `generator`; in
+    eval mode z = mu. Dropout is MelStyleEncoder's, in train mode."""
+
+    def __init__(self, spec_channels: int, z_latent_dim: int, emb_dim: int):
+        super().__init__()
+        self.ref_encoder = MelStyleEncoder(n_mel_channels=spec_channels,
+                                           style_vector_dim=emb_dim)
+        self.fc1 = Linear(emb_dim, z_latent_dim)
+        self.fc2 = Linear(emb_dim, z_latent_dim)
+        self.fc3 = Linear(z_latent_dim, emb_dim)
+
+    def forward(self, x, mask=None, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """x (B, T, spec_channels), mask (B, T, 1) → (style (B, emb_dim), kl ())."""
+        enc = self.ref_encoder(x, mask)
+        mu, logvar = self.fc1(enc), self.fc2(enc)
+        sigma = torch.exp(logvar)
+        kl = torch.mean(0.5 * (sigma ** 2 + mu ** 2 - 1.0) - logvar)
+        if not self.training:
+            return self.fc3(mu), kl
+        if noise is None:
+            dev = mu.device if generator is None else generator.device
+            noise = torch.randn(mu.shape, generator=generator, device=dev).to(mu.device)
+        return self.fc3(mu + noise * sigma), kl
+
+    def infer(self, z):
+        """Style from a prior sample or a chosen latent."""
+        return self.fc3(z)
+
+
 # ---------------------------------------------------------------------------
 # VITS relative-position transformer (attentions.py, ttts_tpu blocks.py:290-440)
 # ---------------------------------------------------------------------------
@@ -395,16 +451,22 @@ class MultiHeadAttention(nn.Module):
     RelPosMultiHeadAttention with window_size). Keys conv_q, conv_k, conv_v,
     conv_o, emb_rel_k, emb_rel_v; the heads share one (1, 2w+1, dk) table
     each, as every configuration does. Masked scores are -1e4, as in JAX.
+    `proximal_bias` adds -log1p(|i - j|) to the scores of a self-attention
+    (attentions.py _attention_bias_proximal, FFT's); `qk_scale` replaces the
+    1/sqrt(dk) score scale. A causal or cross mask comes in as attn_mask.
     Plain PyTorch: the JAX package computes it outside any Pallas kernel, at
     widths (192 wide, 2 heads) too small to want one. Dropout on the
     probabilities at `p_dropout`."""
 
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: Optional[int] = None, p_dropout: float = 0.0):
+                 window_size: Optional[int] = None, p_dropout: float = 0.0,
+                 proximal_bias: bool = False, qk_scale: Optional[float] = None):
         super().__init__()
         self.n_heads, self.window_size = n_heads, window_size
+        self.proximal_bias = proximal_bias
         self.drop = nn.Dropout(p_dropout)
         self.dk = dk = channels // n_heads
+        self.scale = qk_scale if qk_scale is not None else 1.0 / math.sqrt(dk)
         self.conv_q, self.conv_k, self.conv_v = (
             Conv1d(channels, channels, 1, padding=(0, 0)) for _ in range(3))
         self.conv_o = Conv1d(channels, out_channels, 1, padding=(0, 0))
@@ -420,13 +482,18 @@ class MultiHeadAttention(nn.Module):
         q = self.conv_q(x).reshape(b, t, h, dk).transpose(1, 2)
         k = self.conv_k(c).reshape(b, c.shape[1], h, dk).transpose(1, 2)
         v = self.conv_v(c).reshape(b, c.shape[1], h, dk).transpose(1, 2)
-        scores = (q * (1.0 / math.sqrt(dk))) @ k.transpose(-1, -2)
+        scores = (q * self.scale) @ k.transpose(-1, -2)
         if self.window_size is not None:
             if c.shape[1] != t:
                 raise ValueError("relative attention is self-attention only")
             rel_k = _get_rel_embeddings(self.emb_rel_k, t, self.window_size)[0]
             rel = torch.einsum("bhld,md->bhlm", q / math.sqrt(dk), rel_k)
             scores = scores + _rel_to_abs(rel)
+        if self.proximal_bias:
+            if c.shape[1] != t:
+                raise ValueError("the proximal bias is self-attention only")
+            r = torch.arange(t, device=x.device, dtype=scores.dtype)
+            scores = scores - torch.log1p((r[None, :] - r[:, None]).abs())
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask == 0, -1e4)
         p = self.drop(torch.softmax(scores, dim=-1))
@@ -439,13 +506,14 @@ class MultiHeadAttention(nn.Module):
 
 class ConvFFN(nn.Module):
     """conv → ReLU → dropout → conv, masked (attentions.FFN; keys conv_1,
-    conv_2)."""
+    conv_2); `causal` pads k - 1 frames on the left only."""
 
     def __init__(self, channels: int, out_channels: int, filter_channels: int,
-                 kernel_size: int, p_dropout: float = 0.0):
+                 kernel_size: int, p_dropout: float = 0.0, causal: bool = False):
         super().__init__()
-        self.conv_1 = Conv1d(channels, filter_channels, kernel_size)
-        self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size)
+        pad = (kernel_size - 1, 0) if causal else None
+        self.conv_1 = Conv1d(channels, filter_channels, kernel_size, padding=pad)
+        self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size, padding=pad)
         self.drop = nn.Dropout(p_dropout)
 
     def forward(self, x, x_mask):
@@ -480,4 +548,41 @@ class TransformerEncoder(nn.Module):
                                            self.ffn_layers, self.norm_layers_2):
             x = norm1(x + self.drop(attn(x, x, attn_mask)))
             x = norm2(x + self.drop(ffn(x, x_mask)))
+        return x * x_mask
+
+
+class TransformerDecoder(nn.Module):
+    """Causal self-attention + cross-attention decoder (attentions.Decoder:
+    91-176; keys self_attn_layers, norm_layers_0, encdec_attn_layers,
+    norm_layers_1, ffn_layers, norm_layers_2): per layer, causal
+    self-attention → LN → attention to the encoder memory h → LN → causal
+    conv FFN → LN. Dropout on the attention probabilities only, as in JAX."""
+
+    def __init__(self, hidden_channels: int, filter_channels: int, n_heads: int,
+                 n_layers: int, kernel_size: int = 1, p_dropout: float = 0.0):
+        super().__init__()
+        hc = hidden_channels
+        mha = lambda: MultiHeadAttention(hc, hc, n_heads, p_dropout=p_dropout)  # noqa: E731
+        self.self_attn_layers = nn.ModuleList(mha() for _ in range(n_layers))
+        self.norm_layers_0 = nn.ModuleList(LayerNorm(hc) for _ in range(n_layers))
+        self.encdec_attn_layers = nn.ModuleList(mha() for _ in range(n_layers))
+        self.norm_layers_1 = nn.ModuleList(LayerNorm(hc) for _ in range(n_layers))
+        self.ffn_layers = nn.ModuleList(ConvFFN(hc, hc, filter_channels, kernel_size, causal=True)
+                                        for _ in range(n_layers))
+        self.norm_layers_2 = nn.ModuleList(LayerNorm(hc) for _ in range(n_layers))
+
+    def forward(self, x, x_mask, h, h_mask):
+        """x (B, T, C), x_mask (B, T, 1), memory h (B, Th, C), h_mask (B, Th, 1)."""
+        t = x.shape[1]
+        xm, hm = x_mask[:, None, :, 0], h_mask[:, None, :, 0]
+        causal = torch.ones(t, t, device=x.device).tril()
+        self_mask = causal * (xm[:, :, None, :] * xm[:, :, :, None])
+        cross_mask = xm[:, :, :, None] * hm[:, :, None, :]
+        x = x * x_mask
+        for sa, n0, ca, n1, ffn, n2 in zip(self.self_attn_layers, self.norm_layers_0,
+                                           self.encdec_attn_layers, self.norm_layers_1,
+                                           self.ffn_layers, self.norm_layers_2):
+            x = n0(x + sa(x, x, self_mask))
+            x = n1(x + ca(x, h, cross_mask))
+            x = n2(x + ffn(x, x_mask))
         return x * x_mask

@@ -228,31 +228,44 @@ class DiffusionLayer(nn.Module):
         return self.attn(self.resblk(x, time_emb), strip)
 
 
-class RefEncoder(nn.Module):
-    """Perceiver pooling: learned latents cross-attend to the sequence, then
-    conv + 4 AttentionBlocks over latents ++ x, mean-pooled (aa_model.py:
-    150-178). (B, T, dim) → (B, dim)."""
+class CrossAttention(nn.Module):
+    """Multi-head attention of queries q_in (B, Tq, dim) over kv_in (B, Tk,
+    dim) through 1x1 conv projections conv_q, conv_k, conv_v, conv_o, the
+    softmax in f32 (the perceiver pools' and RVQ1's MRTE1's)."""
 
-    def __init__(self, dim: int, num_latents: int = 32, num_heads: int = 8):
+    def __init__(self, dim: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
+        self.conv_q, self.conv_k, self.conv_v, self.conv_o = (Conv1x1(dim, dim)
+                                                              for _ in range(4))
+
+    def forward(self, q_in, kv_in):
+        b, tq, dim = q_in.shape
+        h, dk = self.num_heads, dim // self.num_heads
+        q = self.conv_q(q_in).reshape(b, tq, h, dk).transpose(1, 2)
+        k = self.conv_k(kv_in).reshape(b, -1, h, dk).transpose(1, 2)
+        v = self.conv_v(kv_in).reshape(b, -1, h, dk).transpose(1, 2)
+        w = torch.softmax(((q / math.sqrt(dk)) @ k.transpose(-1, -2)).float(), dim=-1)
+        return self.conv_o((w.to(v.dtype) @ v).transpose(1, 2).reshape(b, tq, dim))
+
+
+class RefEncoder(nn.Module):
+    """Perceiver pooling: learned latents cross-attend to the sequence, then
+    conv (dim → out_dim) + `num_blocks` AttentionBlocks over latents ++ x,
+    mean-pooled (aa_model.py:150-178; RVQ1's RefEncoder, rvq1.py:20-45, with
+    16 latents, 16 heads, 2 blocks). (B, T, dim) → (B, out_dim)."""
+
+    def __init__(self, dim: int, num_latents: int = 32, num_heads: int = 8,
+                 out_dim: Optional[int] = None, num_blocks: int = 4):
+        super().__init__()
+        out_dim = out_dim or dim
         self.latents = nn.Parameter(torch.randn(num_latents, dim) * 0.02)
-        self.cross_attention = nn.Module()
-        for name in ("conv_q", "conv_k", "conv_v", "conv_o"):
-            setattr(self.cross_attention, name, Conv1x1(dim, dim))
-        self.enc = nn.Sequential(Conv1d(dim, dim, 3),
-                                 *(AttentionBlock(dim, num_heads) for _ in range(4)))
+        self.cross_attention = CrossAttention(dim, num_heads)
+        self.enc = nn.Sequential(Conv1d(dim, out_dim, 3),
+                                 *(AttentionBlock(out_dim, num_heads) for _ in range(num_blocks)))
 
     def forward(self, x):
-        b, _, dim = x.shape
-        h, dk = self.num_heads, dim // self.num_heads
-        ca = self.cross_attention
-        lat = self.latents[None].expand(b, -1, -1)
-        q = ca.conv_q(lat).reshape(b, -1, h, dk).transpose(1, 2)
-        k = ca.conv_k(x).reshape(b, -1, h, dk).transpose(1, 2)
-        v = ca.conv_v(x).reshape(b, -1, h, dk).transpose(1, 2)
-        w = torch.softmax(((q / math.sqrt(dk)) @ k.transpose(-1, -2)).float(), dim=-1)
-        lat = ca.conv_o((w.to(v.dtype) @ v).transpose(1, 2).reshape(b, -1, dim))
+        lat = self.cross_attention(self.latents[None].expand(x.shape[0], -1, -1), x)
         y = self.enc(torch.cat([lat, x.to(lat.dtype)], dim=1))
         return y.mean(dim=1)
 

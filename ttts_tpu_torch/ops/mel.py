@@ -7,6 +7,10 @@ serving and codec training paths):
    1e-5))).
 2. Acoustic 24 kHz / 100-bin mel (torchaudio MelSpectrogram, center=True,
    power=1, htk scale, no norm) + safe_log.
+3. Tortoise-v1 22.05 kHz / 80-bin mel (`tacotron_mel_spectrogram`:
+   torchaudio MelSpectrogram power=2, htk scale, slaney norm, fmax 8000,
+   then log(clamp(x, 1e-5)), DiscreteVAE's input) and its min-max [-1, 1]
+   normalisation.
 """
 
 from __future__ import annotations
@@ -117,3 +121,35 @@ def acoustic_mel_spectrogram(audio: torch.Tensor, sample_rate: int = 24000,
                                             sample_rate / 2.0, scale="htk", norm=None))
     mel = torch.einsum("mf,...ft->...mt", basis.to(audio.device), spec.abs())
     return safe_log(mel)
+
+
+TACOTRON_MEL_MAX = 5.5451774444795624753378569716654
+TACOTRON_MEL_MIN = -16.118095650958319788125940182791
+
+
+def tacotron_mel_spectrogram(audio: torch.Tensor, sample_rate: int = 22050,
+                             n_fft: int = 1024, hop_length: int = 256, win_length: int = 1024,
+                             n_mels: int = 80, fmin: float = 0.0, fmax: float = 8000.0,
+                             mel_norms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, T) → (B, n_mels, frames), the Tortoise-v1 mel (ttts/utils/utils.py
+    TorchMelSpectrogram:387-425): power spectrum of a centred STFT, the htk
+    mel scale with slaney norm in an f32 product, log(clamp(x, 1e-5)), each
+    bin divided by `mel_norms` (n_mels,) when given."""
+    spec = stft(audio, n_fft, hop_length, win_length, center=True)
+    power = spec.real ** 2 + spec.imag ** 2
+    basis = torch.from_numpy(mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax,
+                                            scale="htk", norm="slaney"))
+    mel = torch.log(torch.einsum("mf,...ft->...mt", basis.to(audio.device), power)
+                    .clamp_min(1e-5))
+    if mel_norms is not None:
+        mel = mel / mel_norms.to(mel.device)[None, :, None]
+    return mel
+
+
+def normalize_tacotron_mel_minmax(mel: torch.Tensor) -> torch.Tensor:
+    """Min-max to [-1, 1] (diffusion_util.py:42-43, the v1 convention)."""
+    return 2.0 * ((mel - TACOTRON_MEL_MIN) / (TACOTRON_MEL_MAX - TACOTRON_MEL_MIN)) - 1.0
+
+
+def denormalize_tacotron_mel_minmax(norm_mel: torch.Tensor) -> torch.Tensor:
+    return ((norm_mel + 1.0) / 2.0) * (TACOTRON_MEL_MAX - TACOTRON_MEL_MIN) + TACOTRON_MEL_MIN

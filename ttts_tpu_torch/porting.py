@@ -20,7 +20,10 @@ The maps only relayout, so they carry gradients as they carry weights.
 and `classifier_variables` go the other way,
 from this package's state dicts (numpy arrays or tensors) to the JAX
 variable trees (VARIABLES_FNS; train/checkpoints.export_release writes
-them in the JAX package's release format).
+them in the JAX package's release format), and so do the model library's:
+RVQ1, the DVAE, the group quantizer, MelStyleEncoderVAE,
+TransformerDecoder, one flow of models/flows.py (told by its parameters),
+the depthwise-separable convolutions, FFT and TransformerCouplingLayer.
 """
 
 from __future__ import annotations
@@ -185,11 +188,16 @@ def _coupling_flow(sd: StateDict, p: str, tree) -> None:
 
 
 def _conv_transpose(sd: StateDict, p: str, tree) -> None:
-    """blocks.ConvTranspose1d {kernel (k, in, out), g (out,), bias} → the
-    port's weight-normed ConvTranspose1d, the same parameterisation
-    relaid: weight_v (in, out, k), weight_g (1, out, 1)."""
-    sd[p + ".weight_v"] = _a(tree["kernel"]).transpose(1, 2, 0)
-    sd[p + ".weight_g"] = _a(tree["g"]).reshape(1, -1, 1)
+    """blocks.ConvTranspose1d {kernel (k, in, out), [g (out,)], bias} → the
+    port's ConvTranspose1d, the same parameterisation relaid: weight (in,
+    out, k), or weight_v (in, out, k) and weight_g (1, out, 1) with weight
+    norm."""
+    w = _a(tree["kernel"]).transpose(1, 2, 0)
+    if "g" in tree:
+        sd[p + ".weight_v"] = w
+        sd[p + ".weight_g"] = _a(tree["g"]).reshape(1, -1, 1)
+    else:
+        sd[p + ".weight"] = w
     _bias(sd, p, tree)
 
 
@@ -222,17 +230,22 @@ def synthesizer_trn_state_dict(variables, for_training: bool = False) -> StateDi
     _coupling_flow(sd, "flow", params["flow"])
     _generator(sd, "dec", params["dec"])
     _conv(sd, "proj", params["proj"])
-    state = variables["codebook"]["quantizer"]["state"]
+    _codebook(sd, "quantizer", variables["codebook"]["quantizer"]["state"])
+    return sd
+
+
+def _codebook(sd: StateDict, p: str, state) -> None:
+    """A quantizer's RVQState (or its dict) → the EnCodec codebook buffers
+    of each layer, p.vq.layers.{i}._codebook.*."""
     get = (lambda k: state[k]) if isinstance(state, dict) else (lambda k: getattr(state, k))
     embed, embed_avg, size = _a(get("embed")), _a(get("embed_avg")), _a(get("cluster_size"))
     inited = np.asarray(get("inited"), np.float32).reshape(1)
     for i in range(embed.shape[0]):
-        cb = f"quantizer.vq.layers.{i}._codebook"
+        cb = f"{p}.vq.layers.{i}._codebook"
         sd[cb + ".embed"] = embed[i]
         sd[cb + ".embed_avg"] = embed_avg[i]
         sd[cb + ".cluster_size"] = size[i]
         sd[cb + ".inited"] = inited
-    return sd
 
 
 # ----------------------------------------------------------------------- gpt
@@ -597,6 +610,221 @@ def discriminator_state_dict(variables) -> StateDict:
     return sd
 
 
+# ---------------------------------------------------------------------- rvq1
+
+
+def _mrte1(sd: StateDict, p: str, tree) -> None:
+    _dense_as_conv1x1(sd, p + ".ge_enc.0", tree["Dense_0"])
+    _conv_flax(sd, p + ".mel_enc.0", tree["Conv_0"])
+    _conv(sd, p + ".text_pre.0", tree["Conv1d_0"])
+    for i, name in enumerate(("conv_q", "conv_k", "conv_v", "conv_o")):
+        _dense_as_conv1x1(sd, f"{p}.cross_attention.{name}", tree[f"Dense_{i + 1}"])
+    _conv(sd, p + ".c_post", tree["Conv1d_1"])
+
+
+def _rvq1_text_encoder(sd: StateDict, p: str, tree) -> None:
+    """RVQ1TextEncoder: AttentionBlock_0..n-1 are enc1.1.., n..2n-1 enc2.*."""
+    n = _count(tree, "AttentionBlock_") // 2
+    _conv_flax(sd, p + ".enc1.0", tree["Conv_0"])
+    sd[p + ".latents"] = _a(tree["latents"])
+    for i in range(n):
+        _attn_block(sd, f"{p}.enc1.{i + 1}", tree[f"AttentionBlock_{i}"])
+        _attn_block(sd, f"{p}.enc2.{i}", tree[f"AttentionBlock_{n + i}"])
+    _mrte1(sd, p + ".mrte", tree["MRTE1_0"])
+    _conv(sd, p + ".proj", tree["Conv1d_0"])
+
+
+def _wn_encoder(sd: StateDict, p: str, tree) -> None:
+    _conv(sd, p + ".in_proj", tree["Conv1d_0"])
+    _wn(sd, p + ".enc", tree["WN_0"])
+    _conv(sd, p + ".proj", tree["Conv1d_1"])
+
+
+def rvq1_state_dict(variables) -> StateDict:
+    """JAX RVQ1 variables {'params', 'codebook'} → the state dict of
+    ttts_tpu_torch.models.rvq1.RVQ1 (inverse of port_rvq1_state, but for
+    dec's transposed convolutions, as the codec's)."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _conv(sd, "semantic_proj", p["semantic_proj"])
+    _rvq1_text_encoder(sd, "text_enc", p["text_enc"])
+    _wn_encoder(sd, "semantic_enc", p["semantic_enc"])
+    _wn_encoder(sd, "spec_enc", p["spec_enc"])
+    _generator(sd, "dec", p["dec"])
+    _coupling_flow(sd, "flow", p["flow"])
+    _conv(sd, "ref_enc.0", p["ref_pre"])
+    _ref_encoder(sd, "ref_enc.1", p["ref_enc"])
+    _codebook(sd, "quantizer", variables["codebook"]["quantizer"]["state"])
+    return sd
+
+
+# ---------------------------------------------------------------------- dvae
+
+
+def _dvae_resblock(sd: StateDict, p: str, tree) -> None:
+    _conv_flax(sd, p + ".net.0", tree["Conv_0"])
+    _conv_flax(sd, p + ".net.2", tree["Conv_1"])
+
+
+def dvae_state_dict(variables) -> StateDict:
+    """JAX DiscreteVAE variables {'params', 'codebook'} → the state dict of
+    ttts_tpu_torch.models.dvae.DiscreteVAE."""
+    p = variables["params"]
+    sd: StateDict = {}
+    enc, dec = p["encoder"], p["decoder"]
+    n_res = _count(enc, "_ResBlock_")
+    n_down = _count(enc, "Conv1d_") - 1
+    for i in range(n_down):
+        _conv(sd, f"encoder.{i}.0", enc[f"Conv1d_{i}"])
+    for j in range(n_res):
+        _dvae_resblock(sd, f"encoder.{n_down + j}", enc[f"_ResBlock_{j}"])
+    _conv(sd, f"encoder.{n_down + n_res}", enc[f"Conv1d_{n_down}"])
+    base = 0
+    if n_res:
+        _conv(sd, "decoder.0", dec["Conv1d_0"])
+        for j in range(n_res):
+            _dvae_resblock(sd, f"decoder.{1 + j}", dec[f"_ResBlock_{j}"])
+        base = 1 + n_res
+    for i in range(n_down):
+        _conv_transpose(sd, f"decoder.{base + i}.0", dec[f"ConvTranspose1d_{i}"])
+    _conv(sd, f"decoder.{base + n_down}", dec[f"Conv1d_{1 if n_res else 0}"])
+    _codebook(sd, "quantizer", variables["codebook"]["quantizer"]["state"])
+    return sd
+
+
+# ----------------------------------------------------------- group quantizer
+
+
+def group_quantizer_state_dict(variables) -> StateDict:
+    """JAX GroupQuantizer variables → ttts_tpu_torch.models.group_quantizer.
+    GroupQuantizer state dict: each group's codebook an embedding,
+    quantizer_modules.{i}.embedding.weight (vq2.py Quantizer_module)."""
+    cbs = _a(variables["params"]["codebooks"])
+    return {f"quantizer_modules.{i}.embedding.weight": cbs[i] for i in range(cbs.shape[0])}
+
+
+# ------------------------------------------------------------ blocks extras
+
+
+def mel_style_encoder_vae_state_dict(variables) -> StateDict:
+    """JAX MelStyleEncoderVAE variables → the port's (ref_encoder, fc1-3)."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _mel_style_encoder(sd, "ref_encoder", p["ref_encoder"])
+    for name in ("fc1", "fc2", "fc3"):
+        _dense(sd, name, p[name])
+    return sd
+
+
+def transformer_decoder_state_dict(variables) -> StateDict:
+    """JAX TransformerDecoder variables → the port's (attentions.Decoder's
+    keys): per layer i, RelPosMultiHeadAttention_{2i} the causal
+    self-attention, _{2i+1} the attention to the memory, LayerNorm_{3i..3i+2}
+    and Conv1d_{2i}, _{2i+1} the FFN."""
+    p = variables["params"]
+    sd: StateDict = {}
+    for i in range(_count(p, "RelPosMultiHeadAttention_") // 2):
+        _vits_mha(sd, f"self_attn_layers.{i}", p[f"RelPosMultiHeadAttention_{2 * i}"])
+        _vits_mha(sd, f"encdec_attn_layers.{i}", p[f"RelPosMultiHeadAttention_{2 * i + 1}"])
+        for j in range(3):
+            _layernorm(sd, f"norm_layers_{j}.{i}", p[f"LayerNorm_{3 * i + j}"])
+        _conv(sd, f"ffn_layers.{i}.conv_1", p[f"Conv1d_{2 * i}"])
+        _conv(sd, f"ffn_layers.{i}.conv_2", p[f"Conv1d_{2 * i + 1}"])
+    return sd
+
+
+# --------------------------------------------------------------------- flows
+
+
+def _ddsconv(sd: StateDict, p: str, tree) -> None:
+    for i in range(_count(tree, "Conv1d_") // 2):
+        _conv(sd, f"{p}convs_sep.{i}", tree[f"Conv1d_{2 * i}"])
+        _layernorm(sd, f"{p}norms_1.{i}", tree[f"LayerNorm_{2 * i}"])
+        _conv(sd, f"{p}convs_1x1.{i}", tree[f"Conv1d_{2 * i + 1}"])
+        _layernorm(sd, f"{p}norms_2.{i}", tree[f"LayerNorm_{2 * i + 1}"])
+
+
+def flow_state_dict(variables) -> StateDict:
+    """JAX variables of one module of models/flows.py → the port's state
+    dict, the module told by its parameters: ElementwiseAffine {m, logs}
+    → (C, 1) each; ActNorm {logs, bias} → (1, C, 1); InvConvNear {weight};
+    DDSConv; ConvFlow {Conv1d_0 pre, DDSConv_0 convs, Dense_0 proj}."""
+    p = variables["params"]
+    if "m" in p:
+        return {"m": _a(p["m"])[:, None], "logs": _a(p["logs"])[:, None]}
+    if "logs" in p:
+        return {"logs": _a(p["logs"])[None, :, None], "bias": _a(p["bias"])[None, :, None]}
+    if "weight" in p:
+        return {"weight": _a(p["weight"])}
+    sd: StateDict = {}
+    if "DDSConv_0" in p:
+        _conv(sd, "pre", p["Conv1d_0"])
+        _ddsconv(sd, "convs.", p["DDSConv_0"])
+        _dense_as_conv1x1(sd, "proj", p["Dense_0"])
+    else:
+        _ddsconv(sd, "", p)
+    return sd
+
+
+# -------------------------------------------------------- attentions extras
+
+
+def depthwise_separable_conv_state_dict(variables) -> StateDict:
+    """JAX DepthwiseSeparableConv1d / ...ConvTranspose1d variables → the
+    port's (depth_conv, point_conv); the transposed depthwise kernel (k, 1,
+    C) → torch's (C, 1, k), its weight norm g (C,) → weight_g (C, 1, 1)."""
+    p = variables["params"]
+    sd: StateDict = {}
+    if "depth_kernel" not in p:
+        _conv(sd, "depth_conv", p["Conv1d_0"])
+        _conv(sd, "point_conv", p["Conv1d_1"])
+        return sd
+    w = _a(p["depth_kernel"]).transpose(2, 1, 0)
+    if "depth_g" in p:
+        sd["depth_conv.weight_v"] = w
+        sd["depth_conv.weight_g"] = _a(p["depth_g"]).reshape(-1, 1, 1)
+    else:
+        sd["depth_conv.weight"] = w
+    if "depth_bias" in p:
+        sd["depth_conv.bias"] = _a(p["depth_bias"])
+    _conv(sd, "point_conv", p["Conv1d_0"])
+    return sd
+
+
+def _flow_cond(sd: StateDict, p: str, tree) -> None:
+    _conv(sd, p + "cond_layer", tree["Conv1d_0"])
+    _conv(sd, p + "cond_pre", tree["cond_pre"])
+
+
+def fft_state_dict(variables) -> StateDict:
+    """JAX FFT variables → the port's (the inverse of port_fft_state)."""
+    p = variables["params"]
+    sd: StateDict = {}
+    base = 1 if "cond_pre" in p else 0
+    if base:
+        _flow_cond(sd, "", p)
+    for i in range(_count(p, "RelPosMultiHeadAttention_")):
+        _vits_mha(sd, f"self_attn_layers.{i}", p[f"RelPosMultiHeadAttention_{i}"])
+        _layernorm(sd, f"norm_layers_0.{i}", p[f"LayerNorm_{2 * i}"])
+        _conv(sd, f"ffn_layers.{i}.conv_1", p[f"Conv1d_{base + 2 * i}"])
+        _conv(sd, f"ffn_layers.{i}.conv_2", p[f"Conv1d_{base + 2 * i + 1}"])
+        _layernorm(sd, f"norm_layers_1.{i}", p[f"LayerNorm_{2 * i + 1}"])
+    return sd
+
+
+def transformer_coupling_state_dict(variables) -> StateDict:
+    """JAX TransformerCouplingLayer variables → the port's (the inverse of
+    port_transformer_coupling_state)."""
+    p = variables["params"]
+    sd: StateDict = {}
+    _conv(sd, "pre", p["Conv1d_0"])
+    enc = p["FlowConditionedEncoder_0"]
+    _flow_cond(sd, "enc.", enc)
+    _vits_encoder(sd, "enc", enc)
+    _conv_flax(sd, "post", p["post"])
+    return sd
+
+
 STATE_DICT_FNS = {
     "codec": synthesizer_trn_state_dict,
     "gpt": unified_voice_state_dict,
@@ -605,6 +833,15 @@ STATE_DICT_FNS = {
     "clvp": clvp_state_dict,
     "classifier": classifier_state_dict,
     "discriminator": discriminator_state_dict,
+    "rvq1": rvq1_state_dict,
+    "dvae": dvae_state_dict,
+    "group_quantizer": group_quantizer_state_dict,
+    "mel_style_encoder_vae": mel_style_encoder_vae_state_dict,
+    "transformer_decoder": transformer_decoder_state_dict,
+    "flow": flow_state_dict,
+    "depthwise_separable_conv": depthwise_separable_conv_state_dict,
+    "fft": fft_state_dict,
+    "transformer_coupling": transformer_coupling_state_dict,
 }
 
 
@@ -708,14 +945,19 @@ def aa_diffusion_variables(sd) -> dict:
         pre = f"layers.{i}"
         p[f"layers_{i}"] = (_inv_diffusion_layer(sd, pre) if pre + ".attn.qkv.weight" in sd
                             else _inv_ss_resblock(sd, pre))
-    pool = {"latents": _np(sd["refer_enc.4.latents"]),
-            "Conv_0": _inv_conv_flax(sd, "refer_enc.4.enc.0")}
-    for i, name in enumerate(("conv_q", "conv_k", "conv_v", "conv_o")):
-        pool[f"Dense_{i}"] = _inv_dense_as_conv1x1(sd, f"refer_enc.4.cross_attention.{name}")
-    for i in range(len(_indices(sd, "refer_enc.4.enc.")) - 1):
-        pool[f"AttentionBlock_{i}"] = _inv_attn_block(sd, f"refer_enc.4.enc.{i + 1}")
-    p["refer_pool"] = pool
+    p["refer_pool"] = _inv_ref_encoder(sd, "refer_enc.4")
     return {"params": p}
+
+
+def _inv_ref_encoder(sd, p: str) -> dict:
+    """The inverse of _ref_encoder: latents, the cross-attention Denses,
+    the conv and the AttentionBlocks."""
+    tree = {"latents": _np(sd[p + ".latents"]), "Conv_0": _inv_conv_flax(sd, p + ".enc.0")}
+    for i, name in enumerate(("conv_q", "conv_k", "conv_v", "conv_o")):
+        tree[f"Dense_{i}"] = _inv_dense_as_conv1x1(sd, f"{p}.cross_attention.{name}")
+    for i in range(len(_indices(sd, p + ".enc.")) - 1):
+        tree[f"AttentionBlock_{i}"] = _inv_attn_block(sd, f"{p}.enc.{i + 1}")
+    return tree
 
 
 # ----------------------------------------------- codec and discriminator
@@ -831,6 +1073,8 @@ def _inv_coupling_flow(sd, p: str) -> dict:
 
 def _inv_conv_transpose(sd, p: str) -> dict:
     """The inverse of _conv_transpose, a relayout."""
+    if p + ".weight" in sd:
+        return _inv_bias(sd, p, {"kernel": _np(sd[p + ".weight"]).transpose(2, 0, 1)})
     tree = {"kernel": _np(sd[p + ".weight_v"]).transpose(2, 0, 1),
             "g": _np(sd[p + ".weight_g"]).reshape(-1)}
     return _inv_bias(sd, p, tree)
@@ -858,13 +1102,172 @@ def synthesizer_trn_variables(sd) -> dict:
               "proj": _inv_conv(sd, "proj")}
     if any(k.startswith("enc_q.") for k in sd):
         params["enc_q"] = _inv_posterior_audio_encoder(sd, "enc_q")
-    layers = _indices(sd, "quantizer.vq.layers.")
-    cb = lambda k: np.stack([_np(sd[f"quantizer.vq.layers.{i}._codebook.{k}"])  # noqa: E731
+    return {"params": params, "codebook": {"quantizer": {"state": _inv_codebook(sd, "quantizer")}}}
+
+
+def _inv_codebook(sd, p: str) -> dict:
+    """The inverse of _codebook: the RVQState fields as a dict."""
+    layers = _indices(sd, p + ".vq.layers.")
+    cb = lambda k: np.stack([_np(sd[f"{p}.vq.layers.{i}._codebook.{k}"])  # noqa: E731
                              for i in layers])
-    state = {"embed": cb("embed"), "embed_avg": cb("embed_avg"),
-             "cluster_size": cb("cluster_size"),
-             "inited": np.asarray(bool(_np(sd["quantizer.vq.layers.0._codebook.inited"])[0]))}
-    return {"params": params, "codebook": {"quantizer": {"state": state}}}
+    return {"embed": cb("embed"), "embed_avg": cb("embed_avg"),
+            "cluster_size": cb("cluster_size"),
+            "inited": np.asarray(bool(_np(sd[f"{p}.vq.layers.0._codebook.inited"])[0]))}
+
+
+def _inv_wn_encoder(sd, p: str) -> dict:
+    return {"Conv1d_0": _inv_conv(sd, p + ".in_proj"), "WN_0": _inv_wn(sd, p + ".enc"),
+            "Conv1d_1": _inv_conv(sd, p + ".proj")}
+
+
+def _inv_rvq1_text_encoder(sd, p: str) -> dict:
+    n = len(_indices(sd, p + ".enc2."))
+    m = p + ".mrte"
+    mrte = {"Dense_0": _inv_dense_as_conv1x1(sd, m + ".ge_enc.0"),
+            "Conv_0": _inv_conv_flax(sd, m + ".mel_enc.0"),
+            "Conv1d_0": _inv_conv(sd, m + ".text_pre.0"),
+            "Conv1d_1": _inv_conv(sd, m + ".c_post")}
+    for i, name in enumerate(("conv_q", "conv_k", "conv_v", "conv_o")):
+        mrte[f"Dense_{i + 1}"] = _inv_dense_as_conv1x1(sd, f"{m}.cross_attention.{name}")
+    tree = {"Conv_0": _inv_conv_flax(sd, p + ".enc1.0"), "latents": _np(sd[p + ".latents"]),
+            "MRTE1_0": mrte, "Conv1d_0": _inv_conv(sd, p + ".proj")}
+    for i in range(n):
+        tree[f"AttentionBlock_{i}"] = _inv_attn_block(sd, f"{p}.enc1.{i + 1}")
+        tree[f"AttentionBlock_{n + i}"] = _inv_attn_block(sd, f"{p}.enc2.{i}")
+    return tree
+
+
+def dvae_variables(sd) -> dict:
+    """ttts_tpu_torch DiscreteVAE state dict → JAX DiscreteVAE variables;
+    the inverse of dvae_state_dict."""
+    res = lambda q: {"Conv_0": _inv_conv_flax(sd, q + ".net.0"),  # noqa: E731
+                     "Conv_1": _inv_conv_flax(sd, q + ".net.2")}
+    enc_idx = _indices(sd, "encoder.")
+    n_down = sum(f"encoder.{i}.0.weight" in sd for i in enc_idx)
+    n_res = sum(f"encoder.{i}.net.0.weight" in sd for i in enc_idx)
+    enc = {f"Conv1d_{i}": _inv_conv(sd, f"encoder.{i}.0") for i in range(n_down)}
+    enc.update({f"_ResBlock_{j}": res(f"encoder.{n_down + j}") for j in range(n_res)})
+    enc[f"Conv1d_{n_down}"] = _inv_conv(sd, f"encoder.{n_down + n_res}")
+    dec, base = {}, 0
+    if n_res:
+        dec["Conv1d_0"] = _inv_conv(sd, "decoder.0")
+        dec.update({f"_ResBlock_{j}": res(f"decoder.{1 + j}") for j in range(n_res)})
+        base = 1 + n_res
+    for i in range(n_down):
+        dec[f"ConvTranspose1d_{i}"] = _inv_conv_transpose(sd, f"decoder.{base + i}.0")
+    dec[f"Conv1d_{1 if n_res else 0}"] = _inv_conv(sd, f"decoder.{base + n_down}")
+    return {"params": {"encoder": enc, "decoder": dec},
+            "codebook": {"quantizer": {"state": _inv_codebook(sd, "quantizer")}}}
+
+
+def group_quantizer_variables(sd) -> dict:
+    """The inverse of group_quantizer_state_dict."""
+    n = len(_indices(sd, "quantizer_modules."))
+    return {"params": {"codebooks": np.stack(
+        [_np(sd[f"quantizer_modules.{i}.embedding.weight"]) for i in range(n)])}}
+
+
+def _inv_layernorm(sd, p: str) -> dict:
+    return {"scale": _np(sd[p + ".gamma"]), "bias": _np(sd[p + ".beta"])}
+
+
+def mel_style_encoder_vae_variables(sd) -> dict:
+    """The inverse of mel_style_encoder_vae_state_dict."""
+    p = {name: _inv_dense(sd, name) for name in ("fc1", "fc2", "fc3")}
+    p["ref_encoder"] = _inv_mel_style_encoder(sd, "ref_encoder")
+    return {"params": p}
+
+
+def transformer_decoder_variables(sd) -> dict:
+    """The inverse of transformer_decoder_state_dict."""
+    p = {}
+    for i in _indices(sd, "self_attn_layers."):
+        p[f"RelPosMultiHeadAttention_{2 * i}"] = _inv_vits_mha(sd, f"self_attn_layers.{i}")
+        p[f"RelPosMultiHeadAttention_{2 * i + 1}"] = _inv_vits_mha(sd, f"encdec_attn_layers.{i}")
+        for j in range(3):
+            p[f"LayerNorm_{3 * i + j}"] = _inv_layernorm(sd, f"norm_layers_{j}.{i}")
+        p[f"Conv1d_{2 * i}"] = _inv_conv(sd, f"ffn_layers.{i}.conv_1")
+        p[f"Conv1d_{2 * i + 1}"] = _inv_conv(sd, f"ffn_layers.{i}.conv_2")
+    return {"params": p}
+
+
+def _inv_ddsconv(sd, p: str) -> dict:
+    tree = {}
+    for i in _indices(sd, p + "convs_sep."):
+        tree[f"Conv1d_{2 * i}"] = _inv_conv(sd, f"{p}convs_sep.{i}")
+        tree[f"LayerNorm_{2 * i}"] = _inv_layernorm(sd, f"{p}norms_1.{i}")
+        tree[f"Conv1d_{2 * i + 1}"] = _inv_conv(sd, f"{p}convs_1x1.{i}")
+        tree[f"LayerNorm_{2 * i + 1}"] = _inv_layernorm(sd, f"{p}norms_2.{i}")
+    return tree
+
+
+def flow_variables(sd) -> dict:
+    """The inverse of flow_state_dict."""
+    if "m" in sd:
+        return {"params": {"m": _np(sd["m"]).reshape(-1), "logs": _np(sd["logs"]).reshape(-1)}}
+    if "logs" in sd:
+        return {"params": {"logs": _np(sd["logs"]).reshape(-1),
+                           "bias": _np(sd["bias"]).reshape(-1)}}
+    if "weight" in sd:
+        return {"params": {"weight": _np(sd["weight"])}}
+    if "pre.weight" in sd:
+        return {"params": {"Conv1d_0": _inv_conv(sd, "pre"), "DDSConv_0": _inv_ddsconv(sd, "convs."),
+                           "Dense_0": _inv_dense_as_conv1x1(sd, "proj")}}
+    return {"params": _inv_ddsconv(sd, "")}
+
+
+def depthwise_separable_conv_variables(sd, transpose: bool = False) -> dict:
+    """The inverse of depthwise_separable_conv_state_dict (`transpose`: of
+    the transposed variant, whose depthwise weight has the same shape)."""
+    if not transpose:
+        return {"params": {"Conv1d_0": _inv_conv(sd, "depth_conv"),
+                           "Conv1d_1": _inv_conv(sd, "point_conv")}}
+    wn = "depth_conv.weight_v" in sd
+    p = {"depth_kernel": _np(sd["depth_conv.weight_v" if wn else "depth_conv.weight"])
+         .transpose(2, 1, 0), "Conv1d_0": _inv_conv(sd, "point_conv")}
+    if wn:
+        p["depth_g"] = _np(sd["depth_conv.weight_g"]).reshape(-1)
+    if "depth_conv.bias" in sd:
+        p["depth_bias"] = _np(sd["depth_conv.bias"])
+    return {"params": p}
+
+
+def _inv_flow_cond(sd, p: str) -> dict:
+    return {"Conv1d_0": _inv_conv(sd, p + "cond_layer"), "cond_pre": _inv_conv(sd, p + "cond_pre")}
+
+
+def fft_variables(sd) -> dict:
+    """The inverse of fft_state_dict."""
+    base = 1 if "cond_pre.weight" in sd else 0
+    p = _inv_flow_cond(sd, "") if base else {}
+    for i in _indices(sd, "self_attn_layers."):
+        p[f"RelPosMultiHeadAttention_{i}"] = _inv_vits_mha(sd, f"self_attn_layers.{i}")
+        p[f"LayerNorm_{2 * i}"] = _inv_layernorm(sd, f"norm_layers_0.{i}")
+        p[f"Conv1d_{base + 2 * i}"] = _inv_conv(sd, f"ffn_layers.{i}.conv_1")
+        p[f"Conv1d_{base + 2 * i + 1}"] = _inv_conv(sd, f"ffn_layers.{i}.conv_2")
+        p[f"LayerNorm_{2 * i + 1}"] = _inv_layernorm(sd, f"norm_layers_1.{i}")
+    return {"params": p}
+
+
+def transformer_coupling_variables(sd) -> dict:
+    """The inverse of transformer_coupling_state_dict."""
+    enc = {**_inv_flow_cond(sd, "enc."), **_inv_vits_encoder(sd, "enc")}
+    return {"params": {"Conv1d_0": _inv_conv(sd, "pre"), "FlowConditionedEncoder_0": enc,
+                       "post": _inv_conv_flax(sd, "post")}}
+
+
+def rvq1_variables(sd) -> dict:
+    """ttts_tpu_torch RVQ1 state dict → JAX RVQ1 variables {'params',
+    'codebook'}; the inverse of rvq1_state_dict."""
+    params = {"semantic_proj": _inv_conv(sd, "semantic_proj"),
+              "text_enc": _inv_rvq1_text_encoder(sd, "text_enc"),
+              "semantic_enc": _inv_wn_encoder(sd, "semantic_enc"),
+              "spec_enc": _inv_wn_encoder(sd, "spec_enc"),
+              "dec": _inv_generator(sd, "dec"),
+              "flow": _inv_coupling_flow(sd, "flow"),
+              "ref_pre": _inv_conv(sd, "ref_enc.0"),
+              "ref_enc": _inv_ref_encoder(sd, "ref_enc.1")}
+    return {"params": params, "codebook": {"quantizer": {"state": _inv_codebook(sd, "quantizer")}}}
 
 
 def discriminator_variables(sd) -> dict:
@@ -969,4 +1372,10 @@ def classifier_variables(sd) -> dict:
 
 VARIABLES_FNS = {"gpt": unified_voice_variables, "diffusion": aa_diffusion_variables,
                  "vqvae": synthesizer_trn_variables, "discriminator": discriminator_variables,
-                 "clvp": clvp_variables, "classifier": classifier_variables}
+                 "clvp": clvp_variables, "classifier": classifier_variables,
+                 "rvq1": rvq1_variables, "dvae": dvae_variables,
+                 "group_quantizer": group_quantizer_variables,
+                 "mel_style_encoder_vae": mel_style_encoder_vae_variables,
+                 "transformer_decoder": transformer_decoder_variables, "flow": flow_variables,
+                 "depthwise_separable_conv": depthwise_separable_conv_variables,
+                 "fft": fft_variables, "transformer_coupling": transformer_coupling_variables}

@@ -8,13 +8,18 @@ the card's machine has no tensorboard(X) or matplotlib:
   - each histogram and image as `logdir/<tag>/<step>.npy` (the array the
     JAX writer hands tensorboardX);
   - each audio as a 16-bit `logdir/<tag>/<step>.wav` written by save_wav.
-`plot_spectrogram_to_numpy` (matplotlib) is not ported: the eval hooks hand
-the writer the mel arrays themselves. `get_logger` is the JAX package's
-file + console logger.
+`plot_spectrogram_to_numpy` renders a spectrogram as an image with
+matplotlib, imported on first use (the eval hooks hand the writer the mel
+arrays themselves, so training needs no matplotlib). `get_logger` is the
+JAX package's file + console logger. `profile_trace(logdir)` traces the
+block with torch.profiler (the host and, where there is one, the card) and
+writes a Chrome trace under logdir, as the JAX package's jax.profiler
+trace; a None logdir traces nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import pathlib
@@ -74,3 +79,45 @@ def get_logger(name: str = "ttts_tpu_torch", log_file: Optional[str] = None) -> 
             fh.setFormatter(fmt)
             logger.addHandler(fh)
     return logger
+
+
+def plot_spectrogram_to_numpy(spectrogram: np.ndarray) -> np.ndarray:
+    """A (C, T) or (T, C) spectrogram → an HWC uint8 image (the longer axis
+    is time)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    spec = np.asarray(spectrogram)
+    if spec.shape[0] > spec.shape[1]:
+        spec = spec.T
+    fig, ax = plt.subplots(figsize=(10, 2))
+    im = ax.imshow(spec, aspect="auto", origin="lower", interpolation="none")
+    plt.colorbar(im, ax=ax)
+    fig.canvas.draw()
+    data = np.asarray(fig.canvas.buffer_rgba())[..., :3].copy()
+    plt.close(fig)
+    return data
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: Optional[str]):
+    """torch.profiler over the block (the CPU, and CUDA where a card is
+    present), its Chrome trace written to `logdir/trace_<pid>_<n>.json`;
+    nothing for None. Yields the profiler (None for None)."""
+    if logdir is None:
+        yield None
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = pathlib.Path(logdir)
+    out.mkdir(parents=True, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=acts) as prof:
+        yield prof
+    n = len(list(out.glob(f"trace_{os.getpid()}_*.json")))
+    prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{n}.json"))

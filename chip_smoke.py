@@ -144,7 +144,24 @@ Phases, one printed line each, any failure raising (non-zero exit):
       kernel table (vq_nearest_rvq1, vq_nearest_dvae) with the device time
       of kernel, plain version and cuBLAS's x @ cb.T; then one DiffusionTts
       training forward and backward at its defaults with injected draws:
-      finite loss and grad norm, no kernel launched.
+      finite loss and grad norm, no kernel launched;
+  (o) multi-GPU (ttts_tpu_torch.parallel) at world size 1 under NCCL (the
+      one card; ranks > 1 are held on the CPU by tests/test_torch_dist_*.py
+      and test_torch_parallel.py): with cuDNN's and PyTorch's deterministic
+      algorithms on, one GPT trainer step and one codec GAN trainer step
+      through train.mains at default_config() widths without a process
+      group, then `init_process_group("nccl", world_size=1)` (no fallback)
+      and the same steps with the mesh of cfg.mesh, through the
+      data-parallel all-reduce: losses, parameters, optimizer and codebook
+      states bit-equal, VQ launches equal; TextToSpeech(default_config(),
+      mesh=make_mesh(MeshConfig(data=1, model=1))).tts_batch of two texts
+      bit-equal to the mesh-less call, its launches equal and equal to its
+      call sites; the decode kernel on tensor-parallel shards' own caches,
+      allocated at (4, 8/tp, 563, 64) for tp = 2 and 4, concatenated equal
+      to the full-cache launch exactly and within DECODE_TOL of the plain
+      version, timed against its bound (rows decode_attention_tp2 / _tp4,
+      whose launches are those counted on the shards' caches);
+      the median ms of the NCCL all-reduce of the GPT's gradients.
 The last two lines are the kernel table as JSON and then
 {"ok": true, "device": {...}}. Imports no JAX; needs a CUDA card.
 """
@@ -644,12 +661,13 @@ def nonzero_proj_out(model: torch.nn.Module, seed: int = 1) -> torch.nn.Module:
     return model
 
 
-def make_tts(device: str, cfg=None):
-    """TextToSpeech(cfg or default_config()) on seeded random weights, with
-    the diffusion net's attention output projections made non-zero."""
+def make_tts(device: str, cfg=None, mesh=None):
+    """TextToSpeech(cfg or default_config(), mesh=mesh) on seeded random
+    weights, with the diffusion net's attention output projections made
+    non-zero."""
     from ttts_tpu_torch.api import TextToSpeech
 
-    tts = TextToSpeech(cfg, device=device, seed=0)
+    tts = TextToSpeech(cfg, device=device, seed=0, mesh=mesh)
     nonzero_proj_out(tts.diffusion)
     return tts
 
@@ -3075,6 +3093,229 @@ def phase_library(card: str, rows: list) -> dict:
     return {"rvq1": rvq1, "dvae": dvae}
 
 
+# ---------------------------------------------------------------------- (o)
+
+MULTI_BATCH = {"gpt": 4, "gan": 2}
+
+
+def _one_step(make, what: str) -> dict:
+    """One step of the trainer `make()` builds (its train_steps is 1),
+    synchronised: → its metrics, state dict on the CPU and kernel launches."""
+    trainer = make()
+    reset_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    launches = counts()
+    metrics = {k: float(v) for k, v in trainer.history[-1].items()
+               if k not in ("step", "seconds")}
+    state = {k: v.detach().cpu().clone() if torch.is_tensor(v) else v
+             for k, v in _flat_state(trainer.state.state_dict()).items()}
+    mesh = trainer.step_fn.keywords.get("mesh") if isinstance(trainer.step_fn, partial) else None
+    launched = {n: c for n, c in launches.items() if c}
+    log(f"(o) {what}: one step, {'mesh ' + str(tuple(mesh.mesh.shape)) if mesh else 'no mesh'}"
+        f", metrics {metrics}, launches {launched or 0}")
+    return {"metrics": metrics, "state": state, "launches": launches}
+
+
+def _flat_state(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_state(v, f"{prefix}{k}."))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat_state(v, f"{prefix}{i}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _same_step(what: str, a: dict, b: dict) -> None:
+    if a["metrics"] != b["metrics"]:
+        raise AssertionError(f"(o) {what}: metrics differ with the mesh: {a['metrics']} vs "
+                             f"{b['metrics']}")
+    diff = [k for k in a["state"] if torch.is_tensor(a["state"][k])
+            and not torch.equal(a["state"][k], b["state"][k])]
+    if diff or a["state"].keys() != b["state"].keys():
+        raise AssertionError(f"(o) {what}: state differs with the mesh: {diff[:8]}")
+    if a["launches"] != b["launches"]:
+        raise AssertionError(f"(o) {what}: launches {a['launches']} vs {b['launches']}")
+
+
+def _multi_training(root, tag: str) -> dict:
+    """One GPT Trainer step and one codec GAN Trainer step through
+    train.mains at default_config() widths: without a process group (no
+    mesh), or in one (the mesh of cfg.mesh, the data-parallel all-reduce)."""
+    from ttts_tpu_torch.config import default_config
+    from ttts_tpu_torch.train import mains
+
+    base = default_config()
+    out = {}
+    for what, make, manifest in (("gpt", mains.gpt_trainer, root / "train.jsonl"),
+                                 ("gan", mains.vqvae_trainer, root / "wavs.jsonl")):
+        cfg = dataclasses.replace(base, train=dataclasses.replace(
+            base.train, train_steps=1, save_freq=1, batch_size=MULTI_BATCH[what]))
+        logs = str(root / f"{what}_{tag}")
+        out[what] = _one_step(lambda: make(cfg, str(manifest), logs, "cuda"),
+                              f"{what} trainer ({tag})")
+    return out
+
+
+def _decode_shards(rows) -> dict:
+    """The decode kernel on each tensor-parallel shard's own caches,
+    allocated at (B, H/tp, max_len, dk) for tp = 2 and 4, on the head chunks
+    of one full-width decode state: the shards' outputs, concatenated, equal
+    the full launch's exactly, and the plain version within DECODE_TOL. →
+    {tp: the kernel's launches through decode_attention_spmd on the shards'
+    caches} (the counts are reset before those calls and read after them,
+    so the full-cache and timing launches are not among them)."""
+    from ttts_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_plain,
+        decode_attention_spmd,
+        head_chunk,
+    )
+
+    fn = wrapper("decode_attention")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, h, dk, ml = 4, 8, 64, 563
+    bf = partial(torch.randn, generator=g, device="cuda")
+    kc, vc = bf(b, h, ml, dk).to(torch.bfloat16), bf(b, h, ml, dk).to(torch.bfloat16)
+    shard_launches = {2: 0, 4: 0}
+    for pos in (0, 281, ml - 1):
+        q, uk, uv = (bf(b, h, dk).to(torch.bfloat16) for _ in range(3))
+        kf, vf = kc.clone(), vc.clone()
+        full = fn(q, uk, uv, kf, vf, pos)
+        want = decode_attention_plain(q.float(), uk.float(), uv.float(), kc.float(),
+                                      vc.float(), pos)
+        for tp in (2, 4):
+            outs, caches, spmd = [], [], []
+            for s in range(tp):
+                hs = head_chunk(h, s, tp)
+                # each shard's caches allocated at its own shape, not views
+                ks = torch.empty(b, h // tp, ml, dk, dtype=torch.bfloat16, device="cuda")
+                vs = torch.empty_like(ks)
+                ks.copy_(kc[:, hs])
+                vs.copy_(vc[:, hs])
+                spmd.append(partial(decode_attention_spmd, q[:, hs], uk[:, hs], uv[:, hs], ks,
+                                    vs, pos, step=fn))
+                caches.append((ks, vs))
+            reset_counts()
+            outs = [call() for call in spmd]
+            shard_launches[tp] += count("decode_attention")
+            got = torch.cat(outs, dim=1)
+            if not (torch.equal(got, full) and torch.equal(torch.cat([c[0] for c in caches], 1), kf)
+                    and torch.equal(torch.cat([c[1] for c in caches], 1), vf)):
+                raise AssertionError(f"(o) decode tp={tp} pos={pos}: shards differ from the "
+                                     "full-cache launch")
+            # the timed shard: shard 0's caches and rows
+            hs = head_chunk(h, 0, tp)
+            ks, vs = caches[0]
+            q0, uk0, uv0 = q[:, hs].contiguous(), uk[:, hs].contiguous(), uv[:, hs].contiguous()
+            kp, vp = ks.clone(), vs.clone()
+            bh = b * (h // tp) * dk * 2
+            _timed(rows, f"decode_attention_tp{tp}",
+                   f"B={b} H={h}/{tp} dk={dk} max_len={ml} pos={pos} bf16 shard caches, "
+                   f"concatenated = full launch", compare(got, want), "excess", DECODE_TOL,
+                   partial(fn, q0, uk0, uv0, ks, vs, pos),
+                   partial(decode_attention_plain, q0, uk0, uv0, kp, vp, pos),
+                   partial(sdpa, q0[:, :, None], ks[:, :, :pos + 1], vs[:, :, :pos + 1]),
+                   (4 * b * (h // tp) * (pos + 1) * dk, 6 * bh + 2 * pos * bh))
+    return shard_launches
+
+
+def phase_multigpu(card: str, rows: list) -> dict:
+    """(o) Multi-GPU (ttts_tpu_torch.parallel) at world size 1 under NCCL,
+    the one card's: mesh serving and data-parallel training against the
+    mesh-less calls, bit for bit; the decode kernel on tensor-parallel
+    shards' caches; the NCCL all-reduce of the GPT's gradients. → the
+    launches of the mesh serving call."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from ttts_tpu_torch.config import MeshConfig, default_config
+    from ttts_tpu_torch.parallel import make_mesh
+    from ttts_tpu_torch.parallel.mesh import all_reduce, batch_groups
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ttts_multi_"))
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    # the same step twice must repeat bit for bit: cuDNN and SDPA's
+    # deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _train_data(root, rows=8)
+        _gan_data(root, rows=4)
+        ref = _multi_training(root, "no process group")
+        voice = synthetic_voice(5.0, 44100, seed=2)
+        tts = make_tts("cuda")
+        reset_counts()
+        wavs = tts.tts_batch([TEXT, TEXT2], voice, 44100, max_generate_length=400, seed=3)
+        plain_launches = counts()
+        del tts
+        torch.cuda.empty_cache()
+        # NCCL at world size 1; no fallback: a failure here fails the phase
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{root}/store", world_size=1,
+                                rank=0, timeout=datetime.timedelta(seconds=60))
+        try:
+            log(f"(o) process group: backend {dist.get_backend()}, world {dist.get_world_size()}")
+            mesh = make_mesh(MeshConfig(data=1, model=1))
+            tts = make_tts("cuda", mesh=mesh)
+            sites, undo = _watch_call_sites(tts.gpt, tts.clvp, tts.diffusion)
+            reset_counts()
+            t0 = time.perf_counter()
+            got = tts.tts_batch([TEXT, TEXT2], voice, 44100, max_generate_length=400, seed=3)
+            wall = time.perf_counter() - t0
+            undo()
+            launches = counts()
+            _check_wavs(tts, got)
+            if not all(np.array_equal(a, b) for a, b in zip(got, wavs)) or len(got) != 2:
+                raise AssertionError("(o) mesh serving: waveforms differ from the mesh-less call")
+            short = {n: (launches[n], sites[n]) for n in KERNELS if launches[n] != sites[n]}
+            if launches != plain_launches or short:
+                raise AssertionError(f"(o) mesh serving launches {launches} vs mesh-less "
+                                     f"{plain_launches}; launches != call sites: {short}")
+            log(f"(o) TextToSpeech(default_config(), mesh {tuple(mesh.mesh.shape)} "
+                f"{mesh.mesh_dim_names}).tts_batch of 2 texts, fast: waveforms bit-equal to "
+                f"the mesh-less call's, launches equal ({launches}) and = call sites, "
+                f"wall {wall:.3f} s")
+            del tts
+            torch.cuda.empty_cache()
+            shard_launches = _decode_shards(rows)
+            log(f"(o) decode kernel launches on tensor-parallel shards' caches: "
+                f"{shard_launches} (3 positions x tp shards)")
+            dp = _multi_training(root, "NCCL mesh")
+            for what in ("gpt", "gan"):
+                _same_step(what, dp[what], ref[what])
+            log(f"(o) GPT and GAN trainer steps through the NCCL all-reduce: losses, "
+                f"parameters, optimizer and codebook states bit-equal to the mesh-less steps; "
+                f"VQ launches {dp['gan']['launches']['vq_nearest']} = "
+                f"{ref['gan']['launches']['vq_nearest']}")
+            from ttts_tpu_torch.models.gpt import UnifiedVoice
+
+            n = sum(p.numel() for p in UnifiedVoice(default_config().gpt).parameters())
+            grads = [torch.randn(n, device="cuda")]
+            ms = median_ms(lambda: all_reduce(grads, batch_groups(mesh)))
+            raw = torch.randn(n, device="cuda")
+            raw_ms = median_ms(lambda: dist.all_reduce(raw, group=batch_groups(mesh)[0]))
+            log(f"(o) NCCL all-reduce of the GPT's gradients ({n} f32, {n * 4 / 1e6:.1f} MB) "
+                f"at world 1: dist.all_reduce {raw_ms:.4f} ms, the steps' coalesced "
+                f"all_reduce (flatten, reduce, mean, unflatten) {ms:.4f} ms (median of 20, "
+                f"CUDA events; {card})")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = det[0]
+        torch.use_deterministic_algorithms(det[1])
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"(o) phase (o) {time.perf_counter() - t_phase:.1f} s | card {card}")
+    return {"serving": launches, "tp_shards": shard_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3102,6 +3343,8 @@ def main() -> int:
         shutil.rmtree(keep, ignore_errors=True)
     torch.cuda.empty_cache()
     library = phase_library(card, rows)
+    torch.cuda.empty_cache()
+    multi = phase_multigpu(card, rows)
     table = []
     for name, (_, _, _, source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
@@ -3130,6 +3373,10 @@ def main() -> int:
     extra += [(f"{n}_eval_hook", n, recipe["eval_hook"][n], {}) for n in HELD]
     extra += [(f"vq_nearest_{m}", "vq_nearest", library[m]["launches"],
                {"launches_per_call": library[m]["per_call"]}) for m in ("rvq1", "dvae")]
+    # the decode kernel's launches on tensor-parallel shards' caches, counted
+    # in phase (o) (one card runs no tp > 1 serving call)
+    extra += [(f"decode_attention_tp{tp}", "decode_attention", multi["tp_shards"][tp], {})
+              for tp in (2, 4)]
     for row_name, name, n_launches, more in extra:
         row = [r for r in rows if r["name"] == row_name][-1]
         _, _, _, source, replaces = KERNELS[name]

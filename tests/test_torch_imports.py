@@ -93,3 +93,21 @@ def test_clvp_and_classifier_training_entry_points(model, tmp_path):
             else ["--clean", missing, "--noise", missing])
     with pytest.raises(FileNotFoundError):
         mains.main([model, *args, "--device", "cpu", "--logs", str(tmp_path / "logs")])
+
+
+# the multi-GPU package: the scan covers it, and importing it starts no
+# process group (the CLIs and TextToSpeech(mesh=...) join one at run time)
+PARALLEL = ["parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py",
+            "parallel/ring_attention.py"]
+
+
+@pytest.mark.parametrize("path", PARALLEL)
+def test_scan_covers_the_parallel_package(path):
+    import importlib
+
+    import torch.distributed as dist
+
+    assert PKG / path in FILES
+    importlib.import_module("ttts_tpu_torch." + path[:-3].replace("/", ".").replace(
+        ".__init__", ""))
+    assert not dist.is_initialized()

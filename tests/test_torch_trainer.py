@@ -138,11 +138,24 @@ def test_divergence_abort_checkpoints(tmp_path):
     assert tr.ckpt.latest_step() == 3
 
 
-def test_mesh_of_more_than_one_device_raises(tmp_path):
-    state = TrainState.create(_Tiny(), lambda ps: make_adamw(ps, 1e-3))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Trainer(lambda *a: {}, state, [], str(tmp_path), 1,
-                mesh=dataclasses.replace(TINY.mesh, data=2))
+def test_mesh_of_two_data_ranks_trains_and_saves(tmp_path):
+    """A MeshConfig(data=2) Trainer on a 2-rank gloo world trains one step
+    and saves once (rank 0 writes), then both ranks resume from it
+    (test_torch_dist_train.py's "trainer" world)."""
+    import test_torch_dist_train as dist_train
+
+    outs = dist_train.run_world(pathlib.Path(dist_train.__file__), "trainer", 2, tmp_path,
+                                timeout=90)
+    logs = tmp_path / "logs"
+    assert outs[0]["saves"] == [0, 0] and outs[1]["saves"] == []
+    assert CheckpointManager(logs / "ckpt").all_steps() == [1, 2]
+    assert (logs / "train.log").exists() and (logs / "train.p1.log").exists()
+    assert (logs / "tb" / "scalars.jsonl").exists()
+    assert [o["start_1"] for o in outs] == [0, 0] and [o["start_2"] for o in outs] == [1, 1]
+    for k in ("w_1", "w_2"):
+        torch.testing.assert_close(outs[1][k], outs[0][k], rtol=0, atol=0)
+    assert not torch.equal(outs[0]["w_1"], outs[0]["w_2"])
+    assert outs[0]["loss_1"] == outs[1]["loss_1"]
 
 
 CHILD = r'''

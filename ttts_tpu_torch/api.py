@@ -18,6 +18,21 @@ GPT, diffusion and x-transformers CLVP-encoder matmul weights are stored in
 bf16 (norms, heads and CLVP's pooling f32; the plain-Transformer CLVP stays
 f32) and TF32 is switched off, so the codec's f32 convolutions, the VQ
 search and the plain CLVP stay IEEE f32.
+
+Under a mesh (parallel.make_mesh; the JAX package's mesh serving,
+api.py:96-172) every process holds a replicated copy of the models, and:
+  - a `data` (and `dcn`) axis shards the stream batch: each rank decodes,
+    reranks and synthesises its rows when the rows divide over the data
+    ranks, and every rank runs the whole batch otherwise, as the JAX
+    package leaves such a batch unsharded; the rows are all-gathered after
+    each stage, so every rank returns what the unsharded call returns;
+  - a `model` axis of more than one rank runs the GPT decode tensor-
+    parallel over the heads (gpt.inference_speech's `tp`);
+  - an `sp` axis of more than one rank runs the diffusion trunk's attention
+    as ring attention (diffusion_net's sp_mesh).
+The random draws are the global batch's on every rank, from the shared
+seed, and each rank takes its rows, so the sharded call draws what the
+unsharded one draws.
 """
 
 from __future__ import annotations
@@ -45,6 +60,14 @@ from ttts_tpu_torch.models.vocos import Vocos
 from ttts_tpu_torch.models.vqvae import SynthesizerTrn
 from ttts_tpu_torch.ops.mel import acoustic_mel_spectrogram, vits_spectrogram
 from ttts_tpu_torch.ops.resample import resample
+from ttts_tpu_torch.parallel.mesh import (
+    axis_group,
+    axis_size,
+    data_axis_size,
+    gather_batch,
+    replicate,
+    shard_batch,
+)
 
 PRESETS = {
     "ultra_fast": {"num_autoregressive_samples": 1, "diffusion_iterations": 30},
@@ -93,22 +116,30 @@ class Draws:
 class TextToSpeech:
     """Resident-model serving orchestrator."""
 
-    def __init__(self, cfg: Optional[TTTSConfig] = None, device="cuda", seed: int = 0):
+    def __init__(self, cfg: Optional[TTTSConfig] = None, device="cuda", seed: int = 0,
+                 mesh=None):
         """Random weights from `seed`; `set_params` loads a stage's weights
         (e.g. from ttts_tpu_torch.porting). `device` is the card unless the
-        caller asks for the CPU; with no card, the default fails."""
+        caller asks for the CPU; with no card, the default fails. `mesh`: a
+        DeviceMesh of parallel.make_mesh (see the module docstring); every
+        process of it constructs the TextToSpeech and makes the same calls."""
         self.cfg = c = cfg or default_config()
         self.device = prepare_device(device)
         self.tok = default_tokenizer()
+        self.mesh = mesh
+        sp_mesh = mesh if mesh is not None and axis_size(mesh, "sp") > 1 else None
+        self._tp = None if mesh is None else axis_group(mesh, "model")
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.codec = SynthesizerTrn(c.vqvae, spec_channels=c.audio.filter_length // 2 + 1)
             self.gpt = UnifiedVoice(c.gpt)
-            self.diffusion = AA_diffusion(c.diffusion_net)
+            self.diffusion = AA_diffusion(c.diffusion_net, sp_mesh=sp_mesh)
             self.vocos = Vocos(c.vocos)
             self.clvp = CLVP(c.clvp)
         for m in self._modules().values():
             m.eval().requires_grad_(False).to(self.device)
+            if mesh is not None:
+                replicate(m, mesh)
         if self.device.type == "cuda":
             # the plain-Transformer CLVP stays f32, as the JAX package serves it
             clvp = ((self.clvp.text_transformer, self.clvp.speech_transformer)
@@ -129,13 +160,13 @@ class TextToSpeech:
     @classmethod
     def from_checkpoints(cls, cfg: Optional[TTTSConfig] = None, *, codec=None, gpt=None,
                          diffusion=None, vocos=None, clvp=None, device="cuda",
-                         seed: int = 0) -> "TextToSpeech":
+                         seed: int = 0, mesh=None) -> "TextToSpeech":
         """Serving from trained weights (ttts_tpu TextToSpeech.from_checkpoints):
         each stage argument is a release `.npz` of export_release
         (infer_utils.load_state_dict); a stage left None keeps its random
         weights from `seed`. Orbax directories raise: the JAX package reads
-        them."""
-        tts = cls(cfg, device=device, seed=seed)
+        them. `mesh` as in __init__ (every process reads the same files)."""
+        tts = cls(cfg, device=device, seed=seed, mesh=mesh)
         paths = {"codec": codec, "gpt": gpt, "diffusion": diffusion, "vocos": vocos,
                  "clvp": clvp}
         for name, stage in STAGES.items():
@@ -155,6 +186,25 @@ class TextToSpeech:
         self._modules()[stage].load_state_dict(sd, strict=True)
         if stage == "codec":
             self._cond_cache.clear()
+
+    # ------------------------------------------------------------------ mesh
+
+    def _sharded(self, b: int) -> bool:
+        """Whether a stream batch of `b` rows shards over the data ranks
+        (_shard_stream_batch, api.py:161-172): a mesh with more than one
+        data rank that divides b."""
+        if self.mesh is None:
+            return False
+        n = data_axis_size(self.mesh)
+        return n > 1 and b % n == 0
+
+    def _local(self, x: torch.Tensor, b: int, dim: int = 0) -> torch.Tensor:
+        """This rank's rows (along `dim`) of a global batch of `b` rows."""
+        return shard_batch(self.mesh, x, dim) if self._sharded(b) else x
+
+    def _whole(self, x: torch.Tensor, b: int) -> torch.Tensor:
+        """The global batch of `b` rows from every rank's local rows."""
+        return gather_batch(self.mesh, x) if self._sharded(b) else x
 
     # ---------------------------------------------------------- conditioning
 
@@ -235,14 +285,20 @@ class TextToSpeech:
         prompt_codes = torch.nn.functional.pad(prompt_codes, (0, lp - prompt_codes.shape[1]))
         t0 = self._mark(times, "conditioning", t0)
 
+        rows = n * k
         text_b = text_ids.repeat_interleave(k, dim=0)
-        gumbel = draws.gumbel((max_generate_length, n * k, c.gpt.number_mel_codes))
+        # the global batch's draws on every rank; each rank takes its rows
+        gumbel = draws.gumbel((max_generate_length, rows, c.gpt.number_mel_codes))
         codes = inference_speech(
-            self.gpt, text_b, prompt_codes.expand(n * k, -1), max_generate_length,
-            SamplingParams(top_p=0.8, temperature=0.8, repetition_penalty=2.0), gumbel)
+            self.gpt, self._local(text_b, rows), self._local(prompt_codes.expand(rows, -1), rows),
+            max_generate_length, SamplingParams(top_p=0.8, temperature=0.8,
+                                                repetition_penalty=2.0),
+            self._local(gumbel, rows, 1), self._tp)
+        codes = self._whole(codes, rows)
         t0 = self._mark(times, "gpt_decode", t0)
         if k > 1:
-            sims = self.clvp(text_b, codes).reshape(n, k)
+            sims = self.clvp(self._local(text_b, rows), self._local(codes, rows))
+            sims = self._whole(sims, rows).reshape(n, k)
             best = (sims.argmax(dim=1) + torch.arange(n, device=dev) * k).tolist()
         else:
             best = list(range(n))
@@ -257,8 +313,12 @@ class TextToSpeech:
         clean = np.stack([np.where(np.arange(arr.shape[1]) < cl, row, 0)[:bucket]
                           for row, cl in zip(arr[best], code_lens)])
         noise = draws.normal((n, bucket * 4, c.diffusion_net.in_channels))
-        _, wav = self.tail(text_ids, torch.as_tensor(clean, device=dev), code_lens,
-                           refer_mel, noise, opts["diffusion_iterations"], times)
+        mine = self._local(torch.arange(n), n).tolist()
+        _, wav = self.tail(self._local(text_ids, n),
+                           self._local(torch.as_tensor(clean, device=dev), n),
+                           [code_lens[i] for i in mine], refer_mel, self._local(noise, n),
+                           opts["diffusion_iterations"], times)
+        wav = self._whole(wav, n)
         self.last_stage_times = times
         self.last_codes, self.last_best, self.last_code_lens = arr, best, code_lens
         # exact audio = code_len x 4 mel frames x hop samples (Vocos yields

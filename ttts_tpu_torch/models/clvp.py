@@ -59,6 +59,7 @@ from ttts_tpu_torch.config import CLVPConfig
 from ttts_tpu_torch.models.blocks import Linear
 from ttts_tpu_torch.models.gpt import LayerNorm
 from ttts_tpu_torch.ops.cuda import attention
+from ttts_tpu_torch.parallel.mesh import data_rank, gather_batch
 
 
 class RMSNorm(nn.Module):
@@ -340,11 +341,17 @@ class CLVP(nn.Module):
         return tuple(out)
 
     def forward(self, text, speech_tokens, text_mask=None, voice_mask=None,
-                return_loss: bool = False, mask_draws: Optional[Dict[str, torch.Tensor]] = None):
+                return_loss: bool = False, mask_draws: Optional[Dict[str, torch.Tensor]] = None,
+                mesh=None):
         """→ similarity per pair (B,) f32: exp(temperature) * cos(text latent,
         speech latent); see `latents`. With `return_loss`, the symmetric
         InfoNCE over the batch's pairs (clvp/model.py:137-139), f32; in
-        training mode the masks are drawn first (`train_masks`)."""
+        training mode the masks are drawn first (`train_masks`). `mesh`
+        (data parallel): the inputs are this rank's rows of the batch; both
+        latents are all-gathered through the autograd-aware collective and
+        the loss is the mean over this rank's rows of the global (B, B)
+        InfoNCE (labels offset by the rank's first row), so the ranks' mean
+        is JAX's global loss (clvp.py:281-285)."""
         if self.training:
             text_mask, voice_mask = self.train_masks(text, speech_tokens, text_mask,
                                                      voice_mask, mask_draws)
@@ -353,6 +360,13 @@ class CLVP(nn.Module):
             temp = self.temperature.float().exp()
             if not return_loss:
                 return (text_latent * speech_latent).sum(dim=-1) * temp
-            sim = text_latent @ speech_latent.t() * temp
-            labels = torch.arange(sim.shape[0], device=sim.device)
-            return 0.5 * (F.cross_entropy(sim, labels) + F.cross_entropy(sim.t(), labels))
+            if mesh is None:
+                sim = text_latent @ speech_latent.t() * temp
+                labels = torch.arange(sim.shape[0], device=sim.device)
+                return 0.5 * (F.cross_entropy(sim, labels) + F.cross_entropy(sim.t(), labels))
+            b = text_latent.shape[0]
+            labels = data_rank(mesh) * b + torch.arange(b, device=text_latent.device)
+            speech_all = gather_batch(mesh, speech_latent, autograd=True)
+            text_all = gather_batch(mesh, text_latent, autograd=True)
+            return 0.5 * (F.cross_entropy(text_latent @ speech_all.t() * temp, labels)
+                          + F.cross_entropy(speech_latent @ text_all.t() * temp, labels))

@@ -18,6 +18,15 @@ row (`uncond`), stochastic depth over trunk layers 0 < i < n-1
 are explicit arguments (train/steps.py draws them from its generator; the
 tests inject the JAX package's), and autograd-recorded calls take each
 kernel's plain version through the dispatches' gates.
+
+Sequence parallelism (`sp_mesh`, a mesh with an `sp` axis; the JAX
+package's sp_mesh, diffusion_net.py:161-168, 426-461): every rank holds
+the whole (B, T, C) activations, and each AttentionBlock of the per-step
+path (integrator and trunk layers) runs ring attention over `sp`
+(parallel/ring_attention.py) when the axis holds more than one rank and
+divides T, with the bias in strip form; its resblocks then take their
+unfused path, as the JAX package switches off both kernels there
+(ttts_tpu/api.py:128-138).
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ import torch.nn.functional as F
 from ttts_tpu_torch.config import DiffusionNetConfig
 from ttts_tpu_torch.models.blocks import Conv1d, Linear
 from ttts_tpu_torch.ops.cuda import attention, resblock
+from ttts_tpu_torch.parallel.mesh import axis_size
+from ttts_tpu_torch.parallel.ring_attention import make_ring_attention
 
 TACOTRON_MEL_MAX = 5.5451774444795624753378569716654
 
@@ -153,10 +164,11 @@ class AttentionBlock(nn.Module):
     the attention takes the kernel's no-bias mode."""
 
     def __init__(self, channels: int, num_heads: int = 1, fused_gn: bool = False,
-                 relative_pos_embeddings: bool = True):
+                 relative_pos_embeddings: bool = True, sp_mesh=None):
         super().__init__()
         self.num_heads = num_heads
         self.fused_gn = fused_gn
+        self.sp_mesh = sp_mesh
         self.norm = GroupNorm32(channels)
         self.qkv = Conv1x1(channels, 3 * channels)
         self.proj_out = Conv1x1(channels, channels, zero=True)
@@ -180,17 +192,29 @@ class AttentionBlock(nn.Module):
         q, k, v = qkv[..., :dk], qkv[..., dk:2 * dk], qkv[..., 2 * dk:]
         if strip is None and self.relative_pos_embeddings is not None:
             strip = self.relative_pos_embeddings.strip(t)
-        a = attention.attend(q, k, v, strip)
+        if self._use_ring(t):
+            ring = make_ring_attention(self.sp_mesh, "sp", with_bias=strip is not None,
+                                       scale=1.0 / math.sqrt(dk))
+            a = ring(q, k, v, strip)
+        else:
+            a = attention.attend(q, k, v, strip)
         return x + self.proj_out(a.reshape(b, t, c))
+
+    def _use_ring(self, t: int) -> bool:
+        n = 1 if self.sp_mesh is None else axis_size(self.sp_mesh, "sp")
+        return n > 1 and t % n == 0
 
 
 class ScaleShiftResBlock(nn.Module):
     """ResBlock with scale-shift (FiLM) timestep conditioning, efficient 1x1
     in-conv (aa_model.py:72-133); runs as one fused resblock call
-    (resblock.scale_shift_resblock)."""
+    (resblock.scale_shift_resblock), or, with `fused` False (the
+    sequence-parallel trunk) or dropout in training, layer by layer."""
 
-    def __init__(self, channels: int, emb_channels: int, dropout: float = 0.0):
+    def __init__(self, channels: int, emb_channels: int, dropout: float = 0.0,
+                 fused: bool = True):
         super().__init__()
+        self.fused = fused
         self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(),
                                        Conv1x1(channels, channels))
         self.emb_layers = nn.Sequential(nn.SiLU(), Linear(emb_channels, 2 * channels))
@@ -199,7 +223,7 @@ class ScaleShiftResBlock(nn.Module):
 
     def forward(self, x, emb):
         scale, shift = self.emb_layers(emb).float().chunk(2, dim=-1)
-        if self.training and self.out_layers[2].p > 0:
+        if not self.fused or (self.training and self.out_layers[2].p > 0):
             # dropout sits between the second SiLU and conv3: the unfused path
             h = self.in_layers[2](F.silu(self.in_layers[0](x)))
             h = F.silu(self.out_layers[0](h) * (1 + scale[:, None]) + shift[:, None])
@@ -217,12 +241,13 @@ class ScaleShiftResBlock(nn.Module):
 
 
 class DiffusionLayer(nn.Module):
-    """ScaleShiftResBlock + AttentionBlock (aa_model.py:135-148)."""
+    """ScaleShiftResBlock + AttentionBlock (aa_model.py:135-148); `sp_mesh`
+    as in the module docstring."""
 
-    def __init__(self, channels: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, channels: int, num_heads: int, dropout: float = 0.0, sp_mesh=None):
         super().__init__()
-        self.resblk = ScaleShiftResBlock(channels, channels, dropout)
-        self.attn = AttentionBlock(channels, num_heads)
+        self.resblk = ScaleShiftResBlock(channels, channels, dropout, fused=sp_mesh is None)
+        self.attn = AttentionBlock(channels, num_heads, sp_mesh=sp_mesh)
 
     def forward(self, x, time_emb, strip=None):
         return self.attn(self.resblk(x, time_emb), strip)
@@ -278,18 +303,18 @@ class DiffusionTrunk(nn.Module):
     out, under the reference's names."""
 
     def __init__(self, ch: int, in_channels: int, out_channels: int, num_heads: int,
-                 num_layers: int, dropout: float = 0.0):
+                 num_layers: int, dropout: float = 0.0, sp_mesh=None):
         super().__init__()
         self.channels = ch
         self.inp_block = Conv1d(in_channels, ch, 3)
         self.time_embed = nn.Sequential(Linear(ch, ch), nn.SiLU(), Linear(ch, ch))
         self.unconditioned_embedding = nn.Parameter(torch.randn(1, ch, 1))
         self.conditioning_timestep_integrator = nn.ModuleList(
-            DiffusionLayer(ch, num_heads, dropout) for _ in range(3))
+            DiffusionLayer(ch, num_heads, dropout, sp_mesh) for _ in range(3))
         self.integrating_conv = Conv1x1(2 * ch, ch)
         self.layers = nn.ModuleList(
-            [DiffusionLayer(ch, num_heads, dropout) for _ in range(num_layers)]
-            + [ScaleShiftResBlock(ch, ch, dropout) for _ in range(3)])
+            [DiffusionLayer(ch, num_heads, dropout, sp_mesh) for _ in range(num_layers)]
+            + [ScaleShiftResBlock(ch, ch, dropout, fused=sp_mesh is None) for _ in range(3)])
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(), Conv1d(ch, out_channels, 3))
 
     def unconditioned(self, b: int, t: int) -> torch.Tensor:
@@ -327,10 +352,10 @@ class DiffusionTrunk(nn.Module):
 
 
 class AA_diffusion(DiffusionTrunk):
-    def __init__(self, cfg: DiffusionNetConfig):
+    def __init__(self, cfg: DiffusionNetConfig, sp_mesh=None):
         ch = cfg.model_channels
         super().__init__(ch, cfg.in_channels, cfg.out_channels, cfg.num_heads, cfg.num_layers,
-                         cfg.dropout)
+                         cfg.dropout, sp_mesh)
         self.cfg = c = cfg
         self.code_norm = GroupNorm32(ch)
         self.latent_conditioner = nn.Sequential(

@@ -36,12 +36,14 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ttts_tpu_torch.config import GPTConfig
 from ttts_tpu_torch.models.sampling import SamplingParams, sample_logits
 from ttts_tpu_torch.ops.cuda import _build, attention, decode_attention
+from ttts_tpu_torch.parallel.mesh import all_gather
 
 Cache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -90,21 +92,36 @@ class GPT2Block(nn.Module):
         self.mlp.c_proj = Conv1D(4 * dim, dim)
 
     def forward(self, x, cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                pos: int = 0, step=None):
+                pos: int = 0, step=None, tp=None):
         """x (B, T, D) in the activation dtype. With a cache: T > 1 writes
         rows [pos, pos+T) and attends causally over those fresh rows (the
         prefix is self-contained); T == 1 is one decode step at row `pos`
         through `step`, the decode-attention function (decode_attention.pick's
         choice, made here when not given). Without: causal self-attention
         over x; in train mode (no cache), where attention dropout is on or
-        autograd records the call, through SDPA with attention dropout."""
+        autograd records the call, through SDPA with attention dropout.
+
+        `tp` (a process group of tensor-parallel shards, serving only): this
+        rank computes q/k/v and attention for its contiguous heads
+        (decode_attention.head_chunk; the cache holds only them) and the
+        heads' outputs are all-gathered before c_proj; the rest of the
+        block runs replicated."""
         b, t, d = x.shape
         h = self.heads
         dk = d // h
-        q, k, v = self.attn.c_attn(self.ln_1(x)).split(d, dim=-1)
+        if tp is None:
+            q, k, v = self.attn.c_attn(self.ln_1(x)).split(d, dim=-1)
+        else:
+            h = h // dist.get_world_size(tp)
+            w, bias = self._local_qkv(tp)
+            xn = self.ln_1(x)
+            q, k, v = torch.addmm(bias.to(w.dtype), xn.reshape(-1, d).to(w.dtype),
+                                  w).reshape(b, t, 3 * h * dk).split(h * dk, dim=-1)
         if cache is not None and t == 1:
             step = step or decode_attention.pick(q.dtype, dk, q)
-            a = step(q.reshape(b, h, dk), k.reshape(b, h, dk), v.reshape(b, h, dk), *cache, pos)
+            a = decode_attention.decode_attention_spmd(
+                q.reshape(b, h, dk), k.reshape(b, h, dk), v.reshape(b, h, dk), *cache, pos,
+                tp, step)
             a = a.reshape(b, 1, d).to(x.dtype)
         else:
             q, k, v = (z.reshape(b, t, h, dk) for z in (q, k, v))
@@ -117,10 +134,27 @@ class GPT2Block(nn.Module):
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
                     dropout_p=self.attn_dropout).transpose(1, 2).reshape(b, t, d)
             else:
-                a = attention.attend(q, k, v, causal=True).reshape(b, t, d)
+                a = attention.attend(q, k, v, causal=True)
+                if tp is not None:
+                    a = all_gather(a, tp, 2)
+                a = a.reshape(b, t, d)
         p = self.dropout if self.training else 0.0
         x = x + F.dropout(self.attn.c_proj(a), p)
         return x + F.dropout(self.mlp.c_proj(gelu_new(self.mlp.c_fc(self.ln_2(x)))), p)
+
+    def _local_qkv(self, tp):
+        """c_attn's columns and bias of this rank's heads: [q; k; v] of the
+        head chunk, relaid once per weight version."""
+        w, bias = self.attn.c_attn.weight, self.attn.c_attn.bias
+        n, rank = dist.get_world_size(tp), dist.get_rank(tp)
+        key = (w.data_ptr(), w._version, bias._version, rank, n)
+        if key != getattr(self, "_qkv_key", None):
+            d, dk = w.shape[0], w.shape[0] // self.heads
+            hs = decode_attention.head_chunk(self.heads, rank, n)
+            cols = torch.cat([torch.arange(j * d + hs.start * dk, j * d + hs.stop * dk)
+                              for j in range(3)]).to(w.device)
+            self._qkv, self._qkv_key = (w[:, cols].contiguous(), bias[cols]), key
+        return self._qkv
 
 
 class UnifiedVoice(nn.Module):
@@ -149,10 +183,10 @@ class UnifiedVoice(nn.Module):
     def act_dtype(self) -> torch.dtype:
         return self.gpt.h[0].attn.c_attn.weight.dtype
 
-    def _stack(self, emb, cache: Optional[Cache] = None, pos: int = 0, step=None):
+    def _stack(self, emb, cache: Optional[Cache] = None, pos: int = 0, step=None, tp=None):
         x = F.dropout(emb.to(self.act_dtype), self.cfg.dropout if self.training else 0.0)
         for i, block in enumerate(self.gpt.h):
-            x = block(x, None if cache is None else cache[i], pos, step)
+            x = block(x, None if cache is None else cache[i], pos, step, tp)
         return self.gpt.ln_f(x)
 
     def _head(self, h):
@@ -194,28 +228,31 @@ class UnifiedVoice(nn.Module):
         return (_ce(_f32_linear(self.text_head, h_text), text_targets),
                 _ce(mel_logits, mel_targets), mel_logits)
 
-    def prefill(self, text_inputs, prompt_codes, max_len: int):
-        """Run the prompt once and fill per-layer caches (B, H, max_len, dk).
-        Returns (cache, last_logits (B, V) f32, prefix_len, mel_pos_offset)."""
+    def prefill(self, text_inputs, prompt_codes, max_len: int, tp=None):
+        """Run the prompt once and fill per-layer caches (B, H, max_len, dk),
+        or, for a tensor-parallel group `tp`, caches of this rank's H/tp
+        heads only (see GPT2Block). Returns (cache, last_logits (B, V) f32,
+        prefix_len, mel_pos_offset)."""
         c = self.cfg
         text_emb = self._embed_text(text_inputs)
         mel_in = F.pad(prompt_codes, (1, 0), value=c.start_mel_token)
         emb = torch.cat([text_emb, self._embed_mel(mel_in)], dim=1)
         b, p, d = emb.shape
-        h = c.heads
-        cache = [tuple(torch.zeros(b, h, max_len, d // h, dtype=self.act_dtype,
+        h = c.heads // (1 if tp is None else dist.get_world_size(tp))
+        cache = [tuple(torch.zeros(b, h, max_len, d // c.heads, dtype=self.act_dtype,
                                    device=emb.device) for _ in range(2))
                  for _ in range(c.layers)]
-        hid = self._stack(emb, cache, 0)
+        hid = self._stack(emb, cache, 0, tp=tp)
         return cache, self._head(hid[:, -1]), p, mel_in.shape[1]
 
-    def decode_one(self, token, cache: Cache, position: int, mel_position: int, step=None):
+    def decode_one(self, token, cache: Cache, position: int, mel_position: int, step=None,
+                   tp=None):
         """One decode step at absolute row `position` (mel position
-        `mel_position`); caches update in place; `step` as in GPT2Block.
-        Returns logits (B, V) f32."""
+        `mel_position`); caches update in place; `step` and `tp` as in
+        GPT2Block. Returns logits (B, V) f32."""
         emb = (self.mel_embedding(token[:, None])
                + self.mel_pos_embedding.emb.weight[mel_position][None, None])
-        return self._head(self._stack(emb, cache, position, step)[:, 0])
+        return self._head(self._stack(emb, cache, position, step, tp)[:, 0])
 
 
 def _f32_linear(head: nn.Linear, h):
@@ -232,18 +269,22 @@ def _ce(logits, targets):
 
 def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
                      max_generate_length: int, sampling: SamplingParams,
-                     gumbel: torch.Tensor) -> torch.Tensor:
+                     gumbel: torch.Tensor, tp=None) -> torch.Tensor:
     """Autoregressive mel-code generation (gpt.py:465-588) as a Python loop.
 
     text_inputs (B, Lt), prompt_codes (B, Lp); gumbel (max_generate_length,
     B, V) is the noise of each step's draw. Returns codes (B,
     max_generate_length), stop_mel_token after each sequence's stop. The
-    loop ends once every sequence has stopped."""
+    loop ends once every sequence has stopped. `tp`: a process group of
+    tensor-parallel shards over the heads (JAX's tp_shards / decode_spmd,
+    gpt.py:474): the parameters stay replicated, each rank holds and
+    attends over its own heads' caches through the decode kernel, and every
+    rank draws the same tokens from the same `gumbel`."""
     c = model.cfg
     b = text_inputs.shape[0]
     prefix_len = text_inputs.shape[1] + 2 + prompt_codes.shape[1] + 1
     cache, logits, _, mel_off = model.prefill(
-        text_inputs, prompt_codes, prefix_len + max_generate_length)
+        text_inputs, prompt_codes, prefix_len + max_generate_length, tp)
     dev = text_inputs.device
     counts = torch.zeros(b, c.number_mel_codes, dtype=torch.int32, device=dev)
     counts.scatter_add_(1, prompt_codes, torch.ones_like(prompt_codes, dtype=torch.int32))
@@ -261,5 +302,5 @@ def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
         tokens[:, i] = tok
         if bool(done.all()):
             break
-        logits = model.decode_one(tok, cache, prefix_len + i, mel_off + i, step)
+        logits = model.decode_one(tok, cache, prefix_len + i, mel_off + i, step, tp)
     return tokens

@@ -50,9 +50,11 @@ def mle_loss(z, m, logs, logdet, mask) -> torch.Tensor:
     return l + 0.5 * math.log(2 * math.pi)
 
 
-def kl_loss(z_p, logs_q, m_p, logs_p, z_mask) -> torch.Tensor:
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask, mask_sum=None) -> torch.Tensor:
     """Masked VITS KL divergence (losses.py:46-61). Inputs (B, T, C), mask
-    (B, T, 1)."""
+    (B, T, 1). `mask_sum` replaces the mask's sum as the denominator (data
+    parallel: the ranks' mean of theirs, so that the ranks' mean of the
+    loss is the global batch's)."""
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / (torch.sum(z_mask) if mask_sum is None else mask_sum)

@@ -19,8 +19,15 @@ whenever autograd would record the call; the codes are integral, as JAX's
 stop_gradient makes them. The k-means iterations keep their own f32
 product, as JAX's `_kmeans` does. The codebook update works on detached
 tensors outside the graph. The draws (k-means seeds, expiry replacements)
-come from an explicit torch.Generator (`vq_draws`) or are injected; the
-shard_map (`axis_name`) path waits for multi-GPU.
+come from an explicit torch.Generator (`vq_draws`) or are injected.
+
+Data parallel (`mesh`, parallel.make_mesh's; JAX's axis_name path,
+quantize.py:186-229, 269-317): each rank holds its rows of the batch. The
+per-layer statistics (onehot sums, onehot.T @ x) are summed over the batch
+ranks, and the k-means init and the dead-code replacements draw from the
+pool of every rank's rows, all-gathered in rank order (`gather_batch`),
+with the global batch's draws; so every rank holds the same codebook after
+every step. The search itself stays each rank's, through the kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ttts_tpu_torch.ops.cuda import vq
+from ttts_tpu_torch.parallel.mesh import all_reduce, batch_groups, data_axis_size, gather_batch
 
 KMEANS_SAMPLES = 500  # the k-means sample cap (core_vq.py:71-93)
 
@@ -172,16 +180,22 @@ def _kmeans(samples: torch.Tensor, num_clusters: int, seed: torch.Tensor,
 @torch.no_grad()
 def _layer_update(embed: torch.Tensor, embed_avg: torch.Tensor, cluster_size: torch.Tensor,
                   x: torch.Tensor, onehot: torch.Tensor, replace: torch.Tensor,
-                  decay: float, epsilon: float, threshold: float):
+                  decay: float, epsilon: float, threshold: float, mesh=None):
     """EMA update and dead-code expiry of one layer (core_vq.py:216-228 with
     the JAX package's expiry fix): x (N, D) its inputs, onehot (N, bins),
-    `replace` vq_draws' `bins` replacement rows of x. → (embed, embed_avg,
-    cluster_size)."""
+    `replace` vq_draws' `bins` replacement rows of the global pool of x.
+    → (embed, embed_avg, cluster_size)."""
     bins = embed.shape[0]
-    cluster_size = decay * cluster_size + (1 - decay) * onehot.sum(0)
-    embed_avg = decay * embed_avg + (1 - decay) * (onehot.T @ x)
+    onehot_sum, embed_sum = all_reduce([onehot.sum(0), onehot.T @ x], batch_groups(mesh),
+                                       mean=False)
+    cluster_size = decay * cluster_size + (1 - decay) * onehot_sum
+    embed_avg = decay * embed_avg + (1 - decay) * embed_sum
     expired = cluster_size < threshold
-    embed_avg = torch.where(expired[:, None], _sample_vectors(x, replace), embed_avg)
+    # under a mesh the pool is every rank's rows, gathered only when a code
+    # expired (cluster_size is the same on every rank, so they all agree)
+    if mesh is None or bool(expired.any()):
+        embed_avg = torch.where(expired[:, None],
+                                _sample_vectors(gather_batch(mesh, x), replace), embed_avg)
     cluster_size = torch.where(expired, torch.ones_like(cluster_size), cluster_size)
     n = cluster_size.sum()
     smoothed = (cluster_size + epsilon) / (n + bins * epsilon) * n
@@ -189,11 +203,13 @@ def _layer_update(embed: torch.Tensor, embed_avg: torch.Tensor, cluster_size: to
 
 
 @torch.no_grad()
-def _kmeans_init(state: RVQState, flat: torch.Tensor, draws, seeding: str) -> RVQState:
+def _kmeans_init(state: RVQState, flat: torch.Tensor, draws, seeding: str,
+                 mesh=None) -> RVQState:
     """The first training batch's k-means init of every layer, each on the
-    previous layer's residuals (quantize.py:278-307)."""
+    previous layer's residuals (quantize.py:278-307), over the global pool
+    of the batch's rows."""
     embeds, counts = [], []
-    data = flat.detach()
+    data = gather_batch(mesh, flat.detach())
     for i in range(state.embed.shape[0]):
         m, c = _kmeans(data, state.embed.shape[1], draws["kmeans"][i], seeding=seeding)
         embeds.append(m)
@@ -207,19 +223,22 @@ def _kmeans_init(state: RVQState, flat: torch.Tensor, draws, seeding: str) -> RV
 def rvq_forward(state: RVQState, x: torch.Tensor, draws=None, decay: float = 0.99,
                 epsilon: float = 1e-5, threshold_ema_dead_code: float = 2.0,
                 kmeans_seeding: str = "farthest_point",
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, mesh=None):
     """The training forward (ResidualVectorQuantizer.forward with train=True,
     quantize.py:70-95): x (B, T, D) → (quantized (B, T, D), codes (n_q, B,
-    T), commit loss, new state). `draws` (vq_draws' keys; drawn from
-    `generator` when None) feed the k-means init, when the state is not
-    inited yet, and the expiry. The eval forward is rvq_quantize."""
+    T), commit loss, new state). `draws` (vq_draws' keys for the global
+    batch's rows; drawn from `generator` when None) feed the k-means init,
+    when the state is not inited yet, and the expiry. `mesh`: x is this
+    rank's rows of the batch (see the module docstring); the commit loss is
+    this rank's mean. The eval forward is rvq_quantize."""
     b, t, d = x.shape
     n_q, bins = state.embed.shape[:2]
     flat = x.reshape(-1, d)
     if draws is None:
-        draws = vq_draws(flat.shape[0], n_q, bins, kmeans_seeding, generator)
+        n_rows = flat.shape[0] * (1 if mesh is None else data_axis_size(mesh))
+        draws = vq_draws(n_rows, n_q, bins, kmeans_seeding, generator)
     if not bool(state.inited):
-        state = _kmeans_init(state, flat, draws, kmeans_seeding)
+        state = _kmeans_init(state, flat, draws, kmeans_seeding, mesh)
     quantized = torch.zeros_like(flat)
     residual = flat
     losses, codes, new = [], [], []
@@ -231,7 +250,7 @@ def rvq_forward(state: RVQState, x: torch.Tensor, draws=None, decay: float = 0.9
         onehot = F.one_hot(idx, bins).to(residual.dtype)
         new.append(_layer_update(state.embed[i], state.embed_avg[i], state.cluster_size[i],
                                  residual.detach(), onehot, draws["replace"][i], decay,
-                                 epsilon, threshold_ema_dead_code))
+                                 epsilon, threshold_ema_dead_code, mesh))
         losses.append(torch.mean((quant - residual) ** 2))  # commitment (core_vq.py:315)
         quantized = quantized + (residual + (quant - residual).detach())  # straight-through
         residual = residual - quant

@@ -146,13 +146,15 @@ class ResidualVQ(nn.Module):
         """The eval forward: x (B, T, D) → (quantized (B, T, D), codes (n_q, B, T))."""
         return rvq_quantize(self._embed(), x)
 
-    def forward_train(self, x, draws=None, generator: Optional[torch.Generator] = None):
+    def forward_train(self, x, draws=None, generator: Optional[torch.Generator] = None,
+                      mesh=None):
         """The training forward (rvq_forward): x (B, T, D) →
         (quantized (B, T, D) through the straight-through estimator, codes
-        (n_q, B, T), commit loss); the buffers take the updated codebook."""
+        (n_q, B, T), commit loss); the buffers take the updated codebook.
+        `mesh`: x is this rank's rows of a data-parallel batch."""
         q, codes, loss, st = rvq_forward(self.state(), x, draws=draws, decay=self.decay,
                                          kmeans_seeding=self.kmeans_seeding,
-                                         generator=generator)
+                                         generator=generator, mesh=mesh)
         self.set_state(st)
         return q, codes, loss
 
@@ -377,7 +379,7 @@ class SynthesizerTrn(nn.Module):
 
     def forward(self, wav, wav_aug, spec, spec_aug, spec_lengths, text, text_lengths,
                 noise: Optional[torch.Tensor] = None, ids_slice: Optional[torch.Tensor] = None,
-                vq_draws=None, generator: Optional[torch.Generator] = None):
+                vq_draws=None, generator: Optional[torch.Generator] = None, mesh=None):
         """The training forward, JAX's `__call__` (vq2.py:840-871), in train
         mode when the module is (dropout, the codebook's EMA / k-means
         update, enc_q's noise, random slices). wav, wav_aug (B, T*hop, 1),
@@ -385,7 +387,9 @@ class SynthesizerTrn(nn.Module):
         segment_frames*hop, 1), commit loss, ids_slice (B,), y_mask (B, T,
         1), (z, z_p, m_p, logs_p, m_q, logs_q), quantized (B, T, D)).
         `noise` (enc_q's, the shape of m_q), `ids_slice` and `vq_draws`
-        (quantize.vq_draws) replace the draws from `generator`."""
+        (quantize.vq_draws) replace the draws from `generator`. `mesh`: the
+        batch is this rank's rows of a data-parallel batch, and the
+        codebook's update is the global batch's (quantize.rvq_forward)."""
         if not hasattr(self, "enc_q"):
             raise RuntimeError("the training forward needs SynthesizerTrn(for_training=True)")
         self._even(spec, "forward")
@@ -394,7 +398,8 @@ class SynthesizerTrn(nn.Module):
         ge = self.ref_enc(spec * y_mask, y_mask)
         x = self.proj(self.enc_p(spec_aug, wav_aug, y_mask, g=ge)[0])
         if train:
-            quantized, _, commit_loss = self.quantizer.forward_train(x, vq_draws, generator)
+            quantized, _, commit_loss = self.quantizer.forward_train(x, vq_draws, generator,
+                                                                     mesh)
         else:
             quantized, _ = self.quantizer(x)
             commit_loss = torch.zeros((), device=x.device)

@@ -7,15 +7,24 @@ distributed shared memory, so the grid does not depend on `pos` and the
 wrapper allocates only the output. The caches use a GPU-natural layout,
 (B, H, max_len, dk) per layer, instead of the TPU's lane-packed
 (max_len, dk, H*B); both versions write row `pos` in place.
+
+Under tensor parallelism (decode_attention_spmd, the counterpart of
+ttts_tpu's decode_attention_spmd) a shard owns the contiguous heads
+`head_chunk` of every cache, allocated at (B, H/tp, max_len, dk), and runs
+the same kernel on them: (batch, head) pairs are independent, so no
+collective runs inside the op; the outputs are all-gathered over the heads
+after it.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional
 
 import torch
 
 from ttts_tpu_torch.ops.cuda import _build
+from ttts_tpu_torch.parallel.mesh import all_gather
 
 DK = 64  # DEC_DK in decode_attention.cu: the head width the kernel takes
 
@@ -84,3 +93,23 @@ def decode_attention(q, uk, uv, k_cache, v_cache, pos: int) -> torch.Tensor:
 
 
 decode_attention.launches = 0
+
+
+def head_chunk(heads: int, rank: int, tp: int) -> slice:
+    """The contiguous heads of tensor-parallel shard `rank` of `tp`."""
+    if heads % tp:
+        raise ValueError(f"{heads} heads do not divide over {tp} tensor-parallel shards")
+    per = heads // tp
+    return slice(rank * per, (rank + 1) * per)
+
+
+def decode_attention_spmd(q, uk, uv, k_cache, v_cache, pos: int, group=None,
+                          step: Optional[Callable] = None) -> torch.Tensor:
+    """One decode step of a tensor-parallel shard: q, uk, uv (B, H/tp, dk)
+    this shard's heads (head_chunk), caches (B, H/tp, max_len, dk) holding
+    only them; `step` is pick's function (decode_attention, the kernel, on
+    the card). → every head's output (B, H, dk), gathered over `group`
+    (none: this shard's alone)."""
+    step = step or pick(q.dtype, q.shape[-1], q)
+    out = step(q, uk, uv, k_cache, v_cache, pos)
+    return out if group is None else all_gather(out, group, 1)

@@ -4,6 +4,9 @@ training checkpoints, and the half-precision weights-only release export.
 `CheckpointManager` writes one `torch.save` file per step (`step_<n>.pt`,
 written to a temporary name and renamed into place): whatever tree the
 trainer hands it (the model, optimizer, EMA, step and generator states).
+In a process group (data-parallel training) every process calls it alike:
+rank 0 alone writes and rotates, between two barriers, and `restore`
+reads after a barrier, on every rank.
 The JAX package's Orbax directories stay on its side (Orbax imports JAX).
 
 `export_release` writes the JAX package's release `.npz`: the flattened
@@ -24,11 +27,18 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ttts_tpu_torch import porting
 from ttts_tpu_torch.infer_utils import SEP
+from ttts_tpu_torch.parallel.mesh import is_primary
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
+
+
+def _barrier() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 class CheckpointManager:
@@ -52,16 +62,20 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any):
         """Write `tree` for `step` and drop all but the newest `keep`
-        checkpoints."""
-        tmp = self.directory / f".step_{step:08d}.pt.tmp"
-        torch.save(tree, tmp)
-        os.replace(tmp, self.path(step))
-        for old in self.all_steps()[:-self.keep] if self.keep > 0 else []:
-            self.path(old).unlink(missing_ok=True)
+        checkpoints (rank 0 only, between barriers)."""
+        _barrier()
+        if is_primary():
+            tmp = self.directory / f".step_{step:08d}.pt.tmp"
+            torch.save(tree, tmp)
+            os.replace(tmp, self.path(step))
+            for old in self.all_steps()[:-self.keep] if self.keep > 0 else []:
+                self.path(old).unlink(missing_ok=True)
+        _barrier()
 
     def restore(self, step: Optional[int] = None):
         """(step, tree) of `step` (the latest when None) on the CPU, or
         (None, None) when there is none."""
+        _barrier()
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None

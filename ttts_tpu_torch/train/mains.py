@@ -18,6 +18,15 @@ the classifier on lists of clean and noise wavs or directories of their
 `.mel` sidecars (PreprocessedMelDataset); its checkpoints feed
 `prepare.misc classify`, whose noise_files.txt feeds `prepare.pipeline
 filter-noise`.
+
+On N GPUs: `torchrun --nproc_per_node=N -m ttts_tpu_torch.train.mains gpt
+...` (or WORLD_SIZE, RANK, MASTER_ADDR and MASTER_PORT set by hand, one
+process per GPU; WORLD_SIZE counts processes, where the JAX package's
+counts hosts). Each process joins the group (NCCL on the card, gloo with
+--device cpu), builds the mesh of cfg.mesh over the processes, loads its
+own rank-strided batches of cfg.train.batch_size / (dcn x data ranks) rows
+(mains.py:66-100 of the JAX package) and trains data-parallel
+(train/steps.py); rank 0 writes the checkpoints and the scalars.
 """
 
 from __future__ import annotations
@@ -26,10 +35,11 @@ import argparse
 import functools
 import pathlib
 import wave
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ttts_tpu_torch.config import TTTSConfig, default_config, load_config
 from ttts_tpu_torch.data.datasets import (
@@ -42,6 +52,14 @@ from ttts_tpu_torch.data.datasets import (
 from ttts_tpu_torch.data.loader import DataLoader, EpochLoader
 from ttts_tpu_torch.data.sampler import DistributedBucketSampler
 from ttts_tpu_torch.infer_utils import prepare_device
+from ttts_tpu_torch.parallel.mesh import (
+    data_axis_size,
+    data_rank,
+    initialize_distributed,
+    make_mesh,
+    multihost_requested,
+    process_device,
+)
 from ttts_tpu_torch.train.checkpoints import trained_state_dict
 from ttts_tpu_torch.train.state import (
     GanState,
@@ -72,26 +90,61 @@ def _cadence(cfg: TTTSConfig):
     return cfg.train.train_steps * m, cfg.train.save_freq * m, 100 * m
 
 
-def _simple_batches(dataset, batch_size: int, seed: int, num_workers: int = 4):
-    """Shuffled index batches, re-seeded each epoch."""
+def _dist_info(device) -> Tuple[int, int]:
+    """(rank, world) of this process: when the environment asks for more
+    than one process (parallel.multihost_requested), the process group is
+    joined first (NCCL for a CUDA device, gloo on the CPU); else (0, 1),
+    without one."""
+    if multihost_requested():
+        return initialize_distributed(device=device)
+    return 0, 1
+
+
+def _setup(cfg: TTTSConfig, device):
+    """(device, mesh, data rank, data ranks) of this process: its GPU
+    (cuda:LOCAL_RANK) and the mesh of cfg.mesh over the processes in a
+    process group; the given device, no mesh and one rank otherwise."""
+    _, world = _dist_info(device)
+    if world == 1 and not dist.is_initialized():
+        return prepare_device(device), None, 0, 1
+    device = prepare_device(process_device(device))
+    mesh = make_mesh(cfg.mesh)
+    return device, mesh, data_rank(mesh), data_axis_size(mesh)
+
+
+def _per_process_batch(global_batch: int, ranks: int) -> int:
+    """The rows each data rank loads of a global batch."""
+    if global_batch % ranks:
+        raise ValueError(f"global batch {global_batch} must divide over {ranks} data ranks")
+    return global_batch // ranks
+
+
+def _simple_batches(dataset, batch_size: int, seed: int, num_workers: int = 4,
+                    num_replicas: int = 1, rank: int = 0):
+    """Shuffled index batches, re-seeded each epoch; rank-strided over
+    `num_replicas` (every rank draws the same permutation from the shared
+    seed and takes batches[rank::num_replicas] of a multiple of them)."""
 
     def make(epoch: int):
         order = np.random.default_rng(seed + epoch).permutation(len(dataset))
         batches = [list(order[i:i + batch_size])
                    for i in range(0, len(order) - batch_size + 1, batch_size)]
-        return DataLoader(dataset, batches, dataset.collate, num_workers=num_workers)
+        n = len(batches) // num_replicas * num_replicas
+        return DataLoader(dataset, batches[:n][rank::num_replicas], dataset.collate,
+                          num_workers=num_workers)
 
     return EpochLoader(make)
 
 
-def _bucketed_batches(dataset, batch_size: int, seed: int, boundaries, num_workers: int = 4):
+def _bucketed_batches(dataset, batch_size: int, seed: int, boundaries, num_workers: int = 4,
+                      num_replicas: int = 1, rank: int = 0):
     """Length-bucketed shuffled batches (DistributedBucketSampler over
-    `dataset.lengths()`), falling back to _simple_batches when no row lands
-    in a bucket."""
+    `dataset.lengths()`, this rank's of `num_replicas`), falling back to
+    _simple_batches when no row lands in a bucket."""
     sampler = DistributedBucketSampler(dataset.lengths(), batch_size, list(boundaries),
-                                       seed=seed)
+                                       num_replicas=num_replicas, rank=rank, seed=seed)
     if not sampler.buckets:
-        return _simple_batches(dataset, batch_size, seed, num_workers)
+        return _simple_batches(dataset, batch_size, seed, num_workers, num_replicas, rank)
 
     def make(epoch: int):
         sampler.set_epoch(epoch)
@@ -119,12 +172,12 @@ def _adamw(cfg: TTTSConfig, full: bool):
     return lambda ps: with_accumulation(fn(ps), t.accumulate_num)
 
 
-def _trainer(cfg, step, state, data, logs_folder, device, **hooks) -> Trainer:
+def _trainer(cfg, step, state, data, logs_folder, device, mesh, **hooks) -> Trainer:
     """The Trainer with the config's cadences; `hooks`: eval_fn, eval_freq."""
     train_steps, save_freq, log_every = _cadence(cfg)
     trainer = Trainer(step, state, data, logs_folder or cfg.train.logs_folder, train_steps,
                       save_freq, cfg.train.keep_ckpts, log_every=log_every,
-                      seed=cfg.train.seed, mesh=cfg.mesh, device=device, **hooks)
+                      seed=cfg.train.seed, mesh=mesh, device=device, **hooks)
     trainer.maybe_resume()
     return trainer
 
@@ -134,17 +187,18 @@ def gpt_trainer(cfg: TTTSConfig, manifest: str, logs_folder: Optional[str] = Non
     """The GPT's Trainer, resumed from its latest checkpoint if any."""
     from ttts_tpu_torch.models.gpt import UnifiedVoice
 
-    device = prepare_device(device)
+    device, mesh, rank, ranks = _setup(cfg, device)
     ds = GptTtsDataset(manifest)
     # bucketed over VQ-code counts; MAX_CODES = 600, so buckets of 64 up to 640
-    data = _bucketed_batches(ds, cfg.train.batch_size, cfg.train.seed,
-                             boundaries=range(0, 641, 64))
+    data = _bucketed_batches(ds, _per_process_batch(cfg.train.batch_size, ranks),
+                             cfg.train.seed, boundaries=range(0, 641, 64),
+                             num_replicas=ranks, rank=rank)
     model = _build(UnifiedVoice, cfg.gpt, cfg.train.seed, device)
     state = TrainState.create(model, _adamw(cfg, full=True), ema=True)
     step = functools.partial(gpt_train_step, text_weight=cfg.train.text_weight,
                              mel_weight=cfg.train.mel_weight,
                              amp_dtype=_amp_dtype(cfg, device))
-    return _trainer(cfg, step, state, data, logs_folder, device)
+    return _trainer(cfg, step, state, data, logs_folder, device, mesh)
 
 
 def train_gpt(cfg: TTTSConfig, manifest: str, logs_folder: Optional[str] = None,
@@ -163,7 +217,7 @@ def diffusion_trainer(cfg: TTTSConfig, manifest: str, gpt_state_dict: Dict,
     from ttts_tpu_torch.models.diffusion_net import AA_diffusion
     from ttts_tpu_torch.models.gpt import UnifiedVoice
 
-    device = prepare_device(device)
+    device, mesh, rank, ranks = _setup(cfg, device)
     gpt_model = UnifiedVoice(cfg.gpt)
     gpt_model.load_state_dict({k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
                                else v for k, v in gpt_state_dict.items()})
@@ -173,14 +227,15 @@ def diffusion_trainer(cfg: TTTSConfig, manifest: str, gpt_state_dict: Dict,
     ds = DiffusionDataset(manifest)
     # bucketed over target-mel frames (capped at MAX_MEL = 400); one worker,
     # so that the dataset's reference-split draws come in order
-    data = _bucketed_batches(ds, cfg.train.batch_size, cfg.train.seed,
-                             boundaries=range(0, 449, 64), num_workers=1)
+    data = _bucketed_batches(ds, _per_process_batch(cfg.train.batch_size, ranks),
+                             cfg.train.seed, boundaries=range(0, 449, 64), num_workers=1,
+                             num_replicas=ranks, rank=rank)
     net = _build(AA_diffusion, cfg.diffusion_net, cfg.train.seed, device)
     state = TrainState.create(net, _adamw(cfg, full=False))
     step = functools.partial(diffusion_train_step, diffuser=diffuser, gpt_model=gpt_model,
                              unconditioned_percentage=cfg.train.unconditioned_percentage,
                              amp_dtype=_amp_dtype(cfg, device))
-    return _trainer(cfg, step, state, data, logs_folder, device, eval_fn=eval_fn,
+    return _trainer(cfg, step, state, data, logs_folder, device, mesh, eval_fn=eval_fn,
                     eval_freq=eval_freq)
 
 
@@ -197,14 +252,15 @@ def clvp_trainer(cfg: TTTSConfig, manifest: str, logs_folder: Optional[str] = No
     its latest checkpoint if any."""
     from ttts_tpu_torch.models.clvp import CLVP
 
-    device = prepare_device(device)
+    device, mesh, rank, ranks = _setup(cfg, device)
     ds = CLVPDataset(manifest)
-    data = _bucketed_batches(ds, cfg.train.batch_size, cfg.train.seed,
-                             boundaries=range(0, 641, 64))
+    data = _bucketed_batches(ds, _per_process_batch(cfg.train.batch_size, ranks),
+                             cfg.train.seed, boundaries=range(0, 641, 64),
+                             num_replicas=ranks, rank=rank)
     model = _build(CLVP, cfg.clvp, cfg.train.seed, device)
     state = TrainState.create(model, _adamw(cfg, full=False))
     step = functools.partial(clvp_train_step, amp_dtype=_amp_dtype(cfg, device))
-    return _trainer(cfg, step, state, data, logs_folder, device)
+    return _trainer(cfg, step, state, data, logs_folder, device, mesh)
 
 
 def train_clvp(cfg: TTTSConfig, manifest: str, logs_folder: Optional[str] = None,
@@ -223,17 +279,18 @@ def classifier_trainer(cfg: TTTSConfig, clean_list: str, noise_list: str,
     its latest checkpoint if any."""
     from ttts_tpu_torch.models.classifier import AudioMiniEncoderWithClassifierHead
 
-    device = prepare_device(device)
+    device, mesh, rank, ranks = _setup(cfg, device)
     t = cfg.train
     ds = PreprocessedMelDataset(clean_list, noise_list, pad_to=cfg.classifier.pad_to_mel_frames,
                                 spec_dim=cfg.classifier.spec_dim,
                                 rng=np.random.default_rng(t.seed))
-    data = _simple_batches(ds, t.batch_size, t.seed, num_workers=1)
+    data = _simple_batches(ds, _per_process_batch(t.batch_size, ranks), t.seed, num_workers=1,
+                           num_replicas=ranks, rank=rank)
     model = _build(AudioMiniEncoderWithClassifierHead, cfg.classifier, t.seed, device)
     state = TrainState.create(model, lambda ps: make_adamw(
         ps, 3e-4, warmup_steps=0, betas=(0.9, 0.9999), weight_decay=0.01, grad_clip=1.0))
     trainer = Trainer(classifier_train_step, state, data, logs_folder or t.logs_folder,
-                      t.train_steps, t.save_freq, t.keep_ckpts, seed=t.seed, mesh=cfg.mesh,
+                      t.train_steps, t.save_freq, t.keep_ckpts, seed=t.seed, mesh=mesh,
                       device=device)
     trainer.maybe_resume()
     return trainer
@@ -254,14 +311,16 @@ def make_vqvae_augment_cfg(cfg: TTTSConfig):
         q_min=t.q_min, q_max=t.q_max, num_peak=t.num_peak, g_min=t.g_min, g_max=t.g_max)
 
 
-def make_vqvae_loader(cfg: TTTSConfig, ds: VQGANDataset) -> EpochLoader:
+def make_vqvae_loader(cfg: TTTSConfig, ds: VQGANDataset, num_replicas: int = 1,
+                      rank: int = 0) -> EpochLoader:
     """The codec GAN's host data path: a header-only length scan →
     DistributedBucketSampler (0.65-54 s buckets) → the thread-pool
     DataLoader, with the host formant / pitch warp (`wav_warped`) in the
     collate only when cfg.train.aug_warp is on and aug_warp_device off.
     The host warp draws from one generator seeded seed + 17, as JAX's, so
     a resumed run's host warps start over; the device warp draws from the
-    step key and resumes exactly."""
+    step key and resumes exactly. The sampler yields this rank's batches of
+    `num_replicas`, each of cfg.train.batch_size / num_replicas rows."""
     from ttts_tpu_torch.data.audio import wav_frames
     from ttts_tpu_torch.data.augment import warp_batch_np
 
@@ -282,9 +341,9 @@ def make_vqvae_loader(cfg: TTTSConfig, ds: VQGANDataset) -> EpochLoader:
         return b
 
     sampler = DistributedBucketSampler(
-        lengths, cfg.train.batch_size,
+        lengths, _per_process_batch(cfg.train.batch_size, num_replicas),
         boundaries=[int(s * a.sampling_rate) for s in (0.65, 2, 4, 8, 16, 32, 54)],
-        seed=cfg.train.seed)
+        num_replicas=num_replicas, rank=rank, seed=cfg.train.seed)
 
     def make(epoch: int):
         sampler.set_epoch(epoch)
@@ -303,10 +362,10 @@ def vqvae_trainer(cfg: TTTSConfig, manifest: str, logs_folder: Optional[str] = N
     from ttts_tpu_torch.models.discriminator import MultiPeriodDiscriminator
     from ttts_tpu_torch.models.vqvae import SynthesizerTrn
 
-    device = prepare_device(device)
+    device, mesh, rank, ranks = _setup(cfg, device)
     a, t = cfg.audio, cfg.train
     ds = VQGANDataset(manifest, sample_rate=a.sampling_rate, hop_length=a.hop_length)
-    data = make_vqvae_loader(cfg, ds)
+    data = make_vqvae_loader(cfg, ds, ranks, rank)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(t.seed)
         gen = SynthesizerTrn(cfg.vqvae, spec_channels=a.filter_length // 2 + 1,
@@ -320,7 +379,7 @@ def vqvae_trainer(cfg: TTTSConfig, manifest: str, logs_folder: Optional[str] = N
                              augment_cfg=aug_cfg,
                              device_warp=t.aug_warp and t.aug_warp_device)
     trainer = Trainer(step, state, data, logs_folder or t.logs_folder, t.train_steps,
-                      t.save_freq, t.keep_ckpts, seed=t.seed, mesh=cfg.mesh, device=device)
+                      t.save_freq, t.keep_ckpts, seed=t.seed, mesh=mesh, device=device)
     trainer.maybe_resume()
     return trainer
 

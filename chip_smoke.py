@@ -161,7 +161,27 @@ Phases, one printed line each, any failure raising (non-zero exit):
       to the full-cache launch exactly and within DECODE_TOL of the plain
       version, timed against its bound (rows decode_attention_tp2 / _tp4,
       whose launches are those counted on the shards' caches);
-      the median ms of the NCCL all-reduce of the GPT's gradients.
+      the median ms of the NCCL all-reduce of the GPT's gradients;
+  (p) the GPT's long-context training route (gpt.flash_attention, attention
+      dropout 0: attention.FlashCausal): the causal kernel with its
+      log2-sum-exp2 output and the backward kernels (csrc/attention_bwd.cu)
+      against their plain versions at T = 1, 63, 100, 164 and 1796 (and D=32
+      at T=129), each limit beside its reading and failed by its planted
+      fault in phase (g); the backward from a fresh thread (no current
+      CUDA context) equal to this thread's; both timed at the reference
+      context (B=64, text
+      256 + mel 1536: T=1796, H=8, D=64) beside their bound, plain version
+      and SDPA (rows flash_causal_lse, flash_causal_bwd), and forward plus
+      backward as one autograd call beside SDPA's; one loss and its
+      gradients of default_config()'s GPT through the flash route and the
+      SDPA route at that batch (TRAIN_TOL; 6 forward launches and 12
+      backward ones: a dQ and a dK/dV kernel a layer); gpt_train_step
+      (bf16 autocast, AdamW) timed in turns
+      (flash, SDPA, SDPA, flash): step ms, tokens/s, peak memory, busy share,
+      launches; the flash step repeated bit for bit under deterministic
+      algorithms; `train.mains gpt --config` with flash, attention dropout 0
+      and checkpointing for 4 steps at phase (k)'s sizes (12 forward and 12
+      backward launches a step: the checkpoint recomputes each block).
 The last two lines are the kernel table as JSON and then
 {"ok": true, "device": {...}}. Imports no JAX; needs a CUDA card.
 """
@@ -176,6 +196,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from functools import partial
 
@@ -184,6 +205,7 @@ import torch
 
 ATTN_SRC, ATTN_TPU = "ttts_tpu_torch/csrc/attention.cu", "ttts_tpu/ops/pallas/attention.py"
 RES_SRC, RES_TPU = "ttts_tpu_torch/csrc/resblock.cu", "ttts_tpu/ops/pallas/resblock.py"
+FLASH_TPU = "ttts_tpu/models/gpt.py:283 -> jax/experimental/pallas/ops/tpu/flash_attention.py"
 KERNELS = {
     # name: (module, wrapper, attention mode, source, replaced TPU kernel)
     "vq_nearest": ("vq", "vq_nearest", None, "ttts_tpu_torch/csrc/vq.cu",
@@ -202,12 +224,20 @@ KERNELS = {
     "scale_shift_resblock": ("resblock", "fused_scale_shift_resblock", None, RES_SRC,
                              f"{RES_TPU}:142"),
     "gn_qkv": ("resblock", "fused_gn_qkv", None, RES_SRC, f"{RES_TPU}:243"),
+    # the GPT's training route: the library kernel behind ttts_tpu/models/
+    # gpt.py:283 (_flash_causal_attention), its forward and its backward
+    "flash_causal_lse": ("attention", "flash_attention", "causal_lse", ATTN_SRC,
+                         f"{FLASH_TPU}:758"),
+    "flash_causal_bwd": ("attention", "flash_attention", "causal_bwd",
+                         "ttts_tpu_torch/csrc/attention_bwd.cu", f"{FLASH_TPU}:1121 and :1456"),
 }
 # not on the serving path (no model sets AttentionBlock.fused_gn, as in the
 # JAX package): it launches in its own step of phase (d)
 OFF_PATH = ("gn_qkv",)
 # a mode the TPU kernel computes and no caller uses: phase (c) only
 NO_CALLER = ("flash_attention_bias_causal",)
+# the GPT's flash training route (gpt.flash_attention): phase (p) only
+TRAIN_ONLY = ("flash_causal_lse", "flash_causal_bwd")
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA H100 datasheet, dense)
 PEAK_BF16, PEAK_F32, HBM_BYTES_S = 989e12, 67e12, 3.35e12
@@ -807,7 +837,7 @@ def phase_end_to_end():
     per_fast = {n: snaps[1][n] - snaps[0][n] for n in KERNELS}
     sites_fast = {n: site_snaps[1][n] - site_snaps[0][n] for n in KERNELS}
     missing = [n for n, c in launches.items()
-               if c == 0 and n not in OFF_PATH + NO_CALLER]
+               if c == 0 and n not in OFF_PATH + NO_CALLER + TRAIN_ONLY]
     if missing:
         raise AssertionError(f"kernels never launched by the tts calls: {missing}")
     log(f"(d) launches in the four calls: {launches}; in the steady fast call: {per_fast}")
@@ -1394,6 +1424,12 @@ FAULTS = (  # (copy, file, correct text, planted text)
     (1, "resblock.cu", "a[e] = sh[c] - s_mean[g] * m[e];", "a[e] = sh[c];"),
     (1, "vq.cu", "for (int r = 1; r < VQ_RANKS; ++r)", "for (int r = 1; r < VQ_RANKS - 1; ++r)"),
     (2, "vq.cu", "vq_key(nk - 2.f * acc[i][k], j)", "vq_key(-2.f * acc[i][k], j)"),
+    (1, "attention.cu", "m[r] + log2f(l[r])", "m[r] + logf(l[r])"),
+    (2, "attention_bwd.cu", "const bool keep = q0 + j < T && !(it == 0 && j < i);",
+     "const bool keep = q0 + j < T;"),
+    (2, "attention_bwd.cu",
+     "pack_bf16(acc[4 * n + 2 * r] * scale, acc[4 * n + 2 * r + 1] * scale)",
+     "pack_bf16(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1])"),
 )
 COPIES = 1 + max(f[0] for f in FAULTS)
 
@@ -1428,10 +1464,19 @@ def _planted_readings(copy: int, g) -> list:
         return [(f"{fault}, N={n} bins={bins} D={d}", "wrong", 0, vq(n, bins, d))
                 for n, bins, d in shapes]
 
+    flash = "B=2 T=164 H=8 D=64 (a ragged diagonal tile)"
     if copy == 2:
-        return vq_shapes("||e||^2 dropped from the VQ distance")
+        m = _flash_readings((2, 164, 8, 64), g)
+        return vq_shapes("||e||^2 dropped from the VQ distance") + [
+            (f"dK/dV's diagonal-tile causal mask dropped, dk, {flash}", "rel_l2", BWD_TOL,
+             m["dk"]),
+            (f"dK/dV's diagonal-tile causal mask dropped, dv, {flash}", "rel_l2", BWD_TOL,
+             m["dv"]),
+            (f"dQ's 1/sqrt(D) dropped, dq, {flash}", "rel_l2", BWD_TOL, m["dq"])]
     if copy == 1:
-        return [("FiLM scale a2 dropped, resblock B=2 T=1600 C=512", "excess", RES_TOL,
+        return [(f"lse2 in natural log (logf for log2f), {flash}", "max_abs", LSE_TOL,
+                 _flash_readings((2, 164, 8, 64), g)["lse"]),
+                ("FiLM scale a2 dropped, resblock B=2 T=1600 C=512", "excess", RES_TOL,
                  resblock(2, 1600)),
                 ("GN mean dropped from the multiply-add, gn_qkv B=2 T=1024 C=512", "excess",
                  RES_TOL, gn_qkv())] + vq_shapes(
@@ -1555,6 +1600,8 @@ def phase_profile(rows, tts) -> None:
     phase-(c) shape, and the device's busy share of a steady tts call at the
     default preset "fast"."""
     for name in KERNELS:
+        if name in TRAIN_ONLY:  # phase (p) times them at the GPT's training shapes
+            continue
         last = [r for r in rows if r["name"] == name][-1]
         lib = device_us(last["run_library"]) if last["run_library"] else "none"
         log(f"(f) {name}, device time per call at the last (c) shape: kernel "
@@ -1707,13 +1754,13 @@ def _grad_reading(names, card, cpu) -> dict:
 
 
 def _hold_train(what: str, loss_card, loss_cpu, reading, named, tol=TRAIN_TOL,
-                tag: str = "(k)") -> None:
+                tag: str = "(k)", against: str = "card vs f32 CPU") -> None:
     lrel = abs(loss_card - loss_cpu) / abs(loss_cpu)
     nrel = abs(reading["norm_card"] - reading["norm_cpu"]) / reading["norm_cpu"]
     cos = reading["cos"]
     worst = min(cos, key=cos.get)
     named_cos = {n: cos[n] for n in named if n in cos}
-    log(f"{tag} {what}, card vs f32 CPU: loss {loss_card:.6f} vs {loss_cpu:.6f}, rel "
+    log(f"{tag} {what}, {against}: loss {loss_card:.6f} vs {loss_cpu:.6f}, rel "
         f"{lrel:.3e} (tol {tol['loss_rel']}) | grad norm {reading['norm_card']:.5f} vs "
         f"{reading['norm_cpu']:.5f}, rel {nrel:.3e} (tol {tol['grad_norm_rel']}) | "
         f"least cosine of {len(cos)} tensors {cos[worst]:.5f} ({worst}; tol "
@@ -1887,6 +1934,10 @@ def _raw_wrappers_refuse_grad() -> None:
         "fused_gn_qkv": lambda: resblock.fused_gn_qkv(qkv[0].clone().requires_grad_(),
                                                       *qkv[1:], groups=8),
         "vq_nearest": lambda: vq.vq_nearest(x.clone().requires_grad_(), cb),
+        "flash_causal_forward": lambda: attention.flash_causal_forward(
+            q.clone().requires_grad_(), q, q),
+        "flash_causal_backward": lambda: attention.flash_causal_backward(
+            q, q, q, q, torch.zeros(1, 2, 64, device="cuda"), q.clone().requires_grad_()),
         "decode_attention": lambda: decode_attention.decode_attention(
             rows.clone().requires_grad_(), rows, rows, *cache, 3),
     }
@@ -3316,6 +3367,379 @@ def phase_multigpu(card: str, rows: list) -> dict:
     return {"serving": launches, "tp_shards": shard_launches}
 
 
+# ---------------------------------------------------------------------- (p)
+
+# The GPT's long-context training route (GPTConfig.flash_attention with
+# attention dropout 0): attention.FlashCausal, whose forward is the causal
+# kernel with its rows' log2-sum-exp2 (mode "causal_lse") and whose
+# backward is csrc/attention_bwd.cu (mode "causal_bwd", two launches a
+# call: the dQ kernel, then the dK/dV kernel). Each against its
+# plain version on the same bf16 inputs (the backward's plain version fed
+# the kernel forward's O and lse2), each limit on the metric beside it:
+#   O:          rel_l2 <= ATTN_TOL, as phase (c)'s causal rows;
+#   lse2:       max_abs <= LSE_TOL (log2 units): f32 statistics of the same
+#               bf16 products, the order of the sums apart;
+#   dq, dk, dv: rel_l2 <= BWD_TOL: the kernels round P and dS to bf16 before
+#               their products, the plain version keeps f32. Its denominator
+#               is at least GRAD_FLOOR of the whole gradient's norm: a tensor
+#               zero analytically (dq and dk at T=1, where P = 1 and
+#               dS = dO.v - dO.o = 0) is rounding noise on both sides.
+# Readings on an H100 80GB HBM3 (700 W), correct kernels: O 1.8e-3 to
+# 2.1e-3, lse2 <= 1.9e-6, dq / dk / dv 2.4e-3 to 3.2e-3; the planted faults
+# of phase (g) read far above each limit.
+FLASH_TS = (1, 63, 100, 164, 1796)
+FLASH_CTX = (64, 1796, 8, 64)  # B, T, H, D: batch 64 of text 256 + mel 1536 (T = 258 + 1538)
+LSE_TOL, BWD_TOL, GRAD_FLOOR = 1e-4, 1e-2, 1e-3
+FLASH_CLI_STEPS = 4  # steps of the gpt CLI's flash run
+# launches of a flash-route GPT step (6 layers): one forward a layer, and a
+# dQ and a dK/dV kernel a layer in the backward
+FLASH_STEP_LAUNCHES = {"flash_causal_lse": 6, "flash_causal_bwd": 12}
+# exp2 a second: the SFUs' 16 a clock per SM x 132 SMs at the 1.98 GHz boost clock
+SFU_EXP2_S = 132 * 16 * 1.98e9
+
+
+def _flash_inputs(g, b, t, h, d):
+    """q, k, v as views of one fused (B, T, 3 H D) bf16 projection, as the
+    GPT passes them, and a bf16 dO (B, T, H, D)."""
+    from ttts_tpu_torch.ops.cuda.attention import split_qkv
+
+    qkv = torch.randn(b, t, 3 * h * d, generator=g, device="cuda").to(torch.bfloat16)
+    do = torch.randn(b, t, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    return qkv, (*split_qkv(qkv, h), do)
+
+
+def _flash_bound(b, t, h, d, backward: bool):
+    """(ms, by): the larger of the products over the bf16 peak, one exp2 a
+    causal pair over the SFUs' rate and each input read and output written
+    once over the memory rate. Forward: Q.K^T and P.V, reading q, k, v and
+    writing O and lse2; backward: five products (S, dP, dV, dQ, dK),
+    reading q, k, v, O, dO and lse2, writing dq, dk, dv."""
+    pairs = b * h * t * (t + 1) / 2
+    t_ops = max((10 if backward else 4) * pairs * d / PEAK_BF16, pairs / SFU_EXP2_S)
+    nbytes = (8 if backward else 4) * b * t * h * d * 2 + b * h * t * 4
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _flash_readings(shape, g) -> dict:
+    """compare() of the kernels' O, lse2, dq, dk, dv against the plain
+    versions at (B, T, H, D); → {"o", "lse", "dq", "dk", "dv"} and the
+    inputs."""
+    from ttts_tpu_torch.ops.cuda.attention import (flash_causal_backward,
+                                                   flash_causal_backward_plain,
+                                                   flash_causal_forward,
+                                                   flash_causal_forward_plain, split_qkv)
+
+    qkv, (q, k, v, do) = _flash_inputs(g, *shape)
+    o, lse = flash_causal_forward(q, k, v)
+    o_p, lse_p = flash_causal_forward_plain(q, k, v)
+    got = split_qkv(flash_causal_backward(q, k, v, o, lse, do), shape[2])
+    want = flash_causal_backward_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    m = {"o": compare(o, o_p), "lse": compare(lse, lse_p)}
+    floor = GRAD_FLOOR * math.sqrt(sum(float(w.float().square().sum()) for w in want))
+    for n, a, b in zip(("dq", "dk", "dv"), got, want):
+        m[n] = compare(a, b)
+        m[n]["rel_l2"] = float((a.float() - b.float()).norm()) / max(float(b.float().norm()),
+                                                                     floor)
+    return m
+
+
+def _check_flash_kernels(rows, g) -> None:
+    """The forward (O, lse2) and backward (dq, dk, dv) kernels against their
+    plain versions at each T of FLASH_TS (H=8, D=64; B=4 at T=1796, where
+    the plain version's f32 scores are 0.4 GB, B=2 below), and at D=32
+    (T=129, three tiles), each reading beside its limit; then the timed
+    rows at FLASH_CTX."""
+    from ttts_tpu_torch.ops.cuda.attention import (flash_causal_backward,
+                                                   flash_causal_backward_plain,
+                                                   flash_causal_forward,
+                                                   flash_causal_forward_plain)
+
+    worst = {"flash_causal_lse": 0.0, "flash_causal_bwd": 0.0}
+    bad = []
+    shapes = [(2 if t < 1796 else 4, t, 8, 64) for t in FLASH_TS] + [(2, 129, 4, 32)]
+    for shape in shapes:
+        m = _flash_readings(shape, g)
+        limits = {"o": ("rel_l2", ATTN_TOL), "lse": ("max_abs", LSE_TOL),
+                  **{n: ("rel_l2", BWD_TOL) for n in ("dq", "dk", "dv")}}
+        log(f"(p) B={shape[0]} T={shape[1]} H={shape[2]} D={shape[3]} bf16, kernel vs plain: "
+            + ", ".join(f"{n} {metric} {m[n][metric]:.3e} (tol {tol})"
+                        for n, (metric, tol) in limits.items()))
+        bad += [(shape, n) for n, (metric, tol) in limits.items() if not m[n][metric] <= tol]
+        worst["flash_causal_lse"] = max(worst["flash_causal_lse"], m["o"]["max_abs"],
+                                        m["lse"]["max_abs"])
+        worst["flash_causal_bwd"] = max([worst["flash_causal_bwd"]] +
+                                        [m[n]["max_abs"] for n in ("dq", "dk", "dv")])
+    if bad:
+        raise AssertionError(f"(p) flash training kernels disagree with the plain versions: {bad}")
+    # the backward from a thread with no current CUDA context, as autograd's
+    # backward thread is until a torch kernel runs in it: the same gradient
+    _, (q, k, v, do) = _flash_inputs(g, 2, 200, 8, 64)
+    o, lse = flash_causal_forward(q, k, v)
+    got = {}
+    worker = threading.Thread(
+        target=lambda: got.update(grad=flash_causal_backward(q, k, v, o, lse, do)))
+    worker.start()
+    worker.join()
+    same = "grad" in got and torch.equal(got["grad"], flash_causal_backward(q, k, v, o, lse, do))
+    log(f"(p) the backward from a fresh thread (B=2 T=200 H=8 D=64): equal to this thread's "
+        f"{same}")
+    if not same:
+        raise AssertionError("(p) the backward fails or differs in a fresh thread")
+    b, t, h, d = FLASH_CTX
+    qkv, (q, k, v, do) = _flash_inputs(g, b, t, h, d)
+    o, lse = flash_causal_forward(q, k, v)
+    qt, kt, vt, dot = (z.transpose(1, 2) for z in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # the library's backward alone: SDPA's graph kept, autograd.grad timed
+    qg, kg, vg = (z.detach().requires_grad_() for z in (qt, kt, vt))
+    out = sdpa(qg, kg, vg, is_causal=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (qg, kg, vg), dot, retain_graph=True)
+
+    shape = f"B={b} T={t} H={h} D={d} bf16 (GPT reference context)"
+    for name, run, run_plain, run_library, backward in (
+            ("flash_causal_lse", partial(flash_causal_forward, q, k, v),
+             partial(flash_causal_forward_plain, q, k, v),
+             partial(sdpa, qt, kt, vt, is_causal=True), False),
+            ("flash_causal_bwd", partial(flash_causal_backward, q, k, v, o, lse, do),
+             partial(flash_causal_backward_plain, q, k, v, o, lse, do), sdpa_bwd, True)):
+        ms, lms = median_ms(run), median_ms(run_library)
+        torch.cuda.empty_cache()
+        pms = median_ms(run_plain, reps=3, warmup=1)  # tens of GB of f32 scores a call
+        torch.cuda.empty_cache()
+        bms, by = _flash_bound(b, t, h, d, backward)
+        log(f"(c) {name} {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, library {lms:.4f} ms "
+            f"(SDPA{' backward: autograd.grad of its kept graph' if backward else ''}), bound "
+            f"{bms:.4f} ms ({by}; {bms / ms:.1%} of it)")
+        rows.append({"name": name, "shape": shape, "max_abs_err": worst[name], "ms": ms,
+                     "plain_ms": pms, "library_ms": lms, "bound_ms": bms, "bound_by": by,
+                     "run": run, "run_plain": run_plain, "run_library": run_library})
+    # forward plus backward as a training step calls them: FlashCausal
+    # against SDPA, each one autograd call from the inputs
+    from ttts_tpu_torch.ops.cuda.attention import FlashCausal
+
+    qkv_g = qkv.detach().requires_grad_()
+    grad = do.reshape(b, t, h * d)
+    flash_ms = median_ms(lambda: torch.autograd.grad(FlashCausal.apply(qkv_g, h), qkv_g, grad))
+    lib_ms = median_ms(lambda: torch.autograd.grad(sdpa(qg, kg, vg, is_causal=True),
+                                                   (qg, kg, vg), dot))
+    fb = sum(_flash_bound(b, t, h, d, bw)[0] for bw in (False, True))
+    dev = {r["name"]: (device_us(r["run"]), device_us(r["run_library"])) for r in rows[-2:]}
+    log(f"(p) forward + backward at {shape}: FlashCausal {flash_ms:.4f} ms, SDPA "
+        f"{lib_ms:.4f} ms (CUDA events, one autograd call each), bound {fb:.4f} ms | device "
+        f"time (torch.profiler): forward {dev['flash_causal_lse'][0]}, SDPA "
+        f"{dev['flash_causal_lse'][1]}; backward {dev['flash_causal_bwd'][0]}, SDPA's "
+        f"{dev['flash_causal_bwd'][1]}")
+
+
+def _flash_batch(b: int, device="cuda"):
+    """A seeded batch at the reference context: text 256 tokens, 1536 mel
+    codes (a sequence of 258 + 1538 = 1796)."""
+    g = np.random.default_rng(13)
+    return {"text": torch.as_tensor(g.integers(1, 255, (b, 256)), device=device),
+            "text_lengths": torch.full((b,), 256, device=device),
+            "mel_codes": torch.as_tensor(g.integers(0, 1024, (b, 1536)), device=device),
+            "wav_lengths": torch.full((b,), 1536 * 1024, device=device)}
+
+
+def _flash_models(flash: bool, dropout: float, sd=None):
+    """default_config()'s GPT on the card, train mode, attention dropout 0,
+    resid / embedding dropout `dropout`, the flash route on or off."""
+    from ttts_tpu_torch.config import default_config
+    from ttts_tpu_torch.models.gpt import UnifiedVoice
+
+    gcfg = dataclasses.replace(default_config().gpt, flash_attention=flash, attn_dropout=0.0,
+                               dropout=dropout)
+    torch.manual_seed(0)
+    model = UnifiedVoice(gcfg)
+    if sd is not None:
+        model.load_state_dict(sd)
+    return model.cuda().train()
+
+
+def _flash_state(flash: bool, sd):
+    from ttts_tpu_torch.config import default_config
+    from ttts_tpu_torch.train.state import TrainState, make_adamw
+
+    t = default_config().train
+    return TrainState.create(_flash_models(flash, 0.1, sd), lambda ps: make_adamw(
+        ps, t.lr, t.warmup_steps, t.betas, t.weight_decay, t.grad_clip, t.eps))
+
+
+def _flash_steps(flash: bool, sd, batch, card: str, reps: int = 5) -> dict:
+    """gpt_train_step (bf16 autocast, AdamW) at the reference context on a
+    fresh TrainState: median step ms of `reps` after 2 warm-up steps, each
+    ending in a synchronise; tokens/s; peak memory (and its part above what
+    the process held before the timed steps: the state, the batch and other
+    phases' tensors); launches over the timed steps; the busy share of 3
+    more steps under torch.profiler."""
+    from ttts_tpu_torch.train.steps import gpt_train_step
+
+    state = _flash_state(flash, sd)
+    step = partial(gpt_train_step, state, batch, amp_dtype=torch.bfloat16)
+    for key in range(2):
+        step(key)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    reset_counts()
+    secs, losses = [], []
+    for key in range(2, 2 + reps):
+        t0 = time.perf_counter()
+        losses.append(float(step(key)["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = {n: c for n, c in counts().items() if c}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = float(np.median(secs)) * 1e3
+    t0 = time.perf_counter()
+    for key in range(3):
+        step(10 + key)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, n, _ = _device_busy(lambda: [step(20 + key) for key in range(3)])
+    tokens = batch["text"].numel() + batch["mel_codes"].numel() + 4 * batch["text"].shape[0]
+    out = {"ms": ms, "spread": (min(secs) * 1e3, max(secs) * 1e3), "tok_s": tokens / ms * 1e3,
+           "peak": peak, "busy": busy / wall, "launches": launches, "reps": reps,
+           "finite": all(math.isfinite(x) for x in losses)}
+    log(f"(p) GPT train step, {'flash' if flash else 'SDPA'} route, B={batch['text'].shape[0]} "
+        f"text 256 + mel 1536, bf16 autocast: median {ms:.2f} ms ({out['spread'][0]:.2f}-"
+        f"{out['spread'][1]:.2f}) over {reps} steps, {out['tok_s']:.0f} tokens/s, peak memory "
+        f"{peak:.2f} GiB ({peak - held:.2f} above the {held:.2f} held before), busy share {out['busy']:.3f} (3 steps: {busy:.1f} ms of {wall:.1f} "
+        f"ms, {n} launches), launches over the {reps} steps {launches or 'none'}, losses "
+        f"finite {out['finite']} | card {card}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flash_vs_sdpa(sd, batch) -> dict:
+    """One GPT loss and its gradients through the flash route and through
+    the SDPA route on the card (bf16 autocast, dropout off so that the two
+    draw nothing), held to TRAIN_TOL; → the flash route's launches."""
+    from ttts_tpu_torch.train.steps import autocast, gpt_loss
+
+    out = {}
+    for name, flash in (("flash", True), ("sdpa", False)):
+        model = _flash_models(flash, 0.0, sd)
+        reset_counts()
+        with autocast(torch.device("cuda"), torch.bfloat16):
+            loss, _, _ = gpt_loss(model, batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+        torch.cuda.synchronize()
+        out[name] = (loss.item(), [g.float().cpu() if g is not None else None for g in grads],
+                     counts())
+        names = [n for n, _ in model.named_parameters()]
+        del model, loss, grads
+        torch.cuda.empty_cache()
+    named = [n for n in names if n.startswith("gpt.h.") and ".attn.c_" in n and n.endswith("weight")]
+    _hold_train("GPT step", out["flash"][0], out["sdpa"][0],
+                _grad_reading(names, out["flash"][1], out["sdpa"][1]), named, tag="(p)",
+                against="flash route vs SDPA route, both on the card")
+    return out["flash"][2]
+
+
+def _flash_repeat(sd, batch) -> None:
+    """The same gpt_train_step (dropout on, one key) on two fresh states
+    under deterministic algorithms: metrics and parameters bit-equal."""
+    from ttts_tpu_torch.train.steps import gpt_train_step
+
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = []
+        for _ in range(2):
+            state = _flash_state(True, sd)
+            m = gpt_train_step(state, batch, 7, amp_dtype=torch.bfloat16)
+            runs.append(({k: float(v) for k, v in m.items()},
+                         [p.detach().clone() for p in state.params]))
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = det[0]
+        torch.use_deterministic_algorithms(det[1])
+    same = runs[0][0] == runs[1][0] and all(torch.equal(a, b) for a, b in zip(runs[0][1],
+                                                                               runs[1][1]))
+    log(f"(p) the flash-route step twice under deterministic algorithms (dropout 0.1, key 7): "
+        f"metrics {runs[0][0]} and {runs[1][0]}, parameters bit-equal {same}")
+    if not same:
+        raise AssertionError("(p) the flash-route step does not repeat bit for bit")
+
+
+def _flash_cli(root, card: str) -> dict:
+    """`python -m ttts_tpu_torch.train.mains gpt --config <flash, attention
+    dropout 0, checkpointing> ...` in this process (its launches counted),
+    FLASH_CLI_STEPS steps of batch 32 on phase (k)'s synthetic rows: each
+    step's forward launches the forward kernel twice a layer (the block
+    recomputed by the checkpoint in the backward), its backward the dQ and
+    the dK/dV kernels once a layer."""
+    from ttts_tpu_torch.train import mains
+    from ttts_tpu_torch.train.checkpoints import trained_state_dict
+
+    manifest = _train_data(root)
+    cfg = root / "flash.json"
+    cfg.write_text(json.dumps({
+        "gpt": {"flash_attention": True, "attn_dropout": 0.0, "checkpointing": True},
+        "train": {"train_steps": FLASH_CLI_STEPS, "save_freq": FLASH_CLI_STEPS,
+                  "batch_size": TRAIN_BATCH}}))
+    reset_counts()
+    t0 = time.perf_counter()
+    mains.main(["gpt", "--config", str(cfg), "--manifest", manifest, "--logs",
+                str(root / "gpt_flash")])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {n: c for n, c in counts().items() if c}
+    want = {n: FLASH_CLI_STEPS * c * (2 if n == "flash_causal_lse" else 1)
+            for n, c in FLASH_STEP_LAUNCHES.items()}
+    sd = trained_state_dict("gpt", root / "gpt_flash")[0]
+    finite = all(bool(torch.isfinite(v).all()) for v in sd.values() if v.is_floating_point())
+    log(f"(p) train.mains gpt --config {{gpt: flash_attention, attn_dropout 0, checkpointing; "
+        f"{FLASH_CLI_STEPS} steps of batch {TRAIN_BATCH}}}: {secs:.1f} s, launches {launches} "
+        f"(expected {want}), checkpoint at step {FLASH_CLI_STEPS} finite {finite} | card {card}")
+    if launches != want or not finite:
+        raise AssertionError("(p) the gpt CLI's flash route launched otherwise or diverged")
+    return launches
+
+
+
+def phase_flash_train(card: str, rows: list) -> dict:
+    """(p) The GPT's long-context training route on the card: the kernels
+    against their plain versions and timed at the reference context; one
+    step through the flash and the SDPA routes (loss, gradients); steps
+    timed in turns (flash, SDPA, SDPA, flash); a step repeated bit for bit;
+    the gpt CLI with a flash config. → the launches for the kernel table."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    g = torch.Generator("cuda").manual_seed(14)
+    _check_flash_kernels(rows, g)
+    batch = _flash_batch(FLASH_CTX[0])
+    sd = {k: v.cpu() for k, v in _flash_models(True, 0.1).state_dict().items()}
+    torch.cuda.empty_cache()
+    per_loss = _flash_vs_sdpa(sd, batch)
+    want = {n: FLASH_STEP_LAUNCHES.get(n, 0) for n in KERNELS}
+    if per_loss != want:
+        raise AssertionError(f"(p) a flash-route loss and its gradients launched {per_loss}, "
+                             f"expected {want}")
+    runs = [_flash_steps(flash, sd, batch, card) for flash in (True, False, False, True)]
+    for run, flash in zip(runs, (True, False, False, True)):
+        exp = {n: c * run["reps"] for n, c in FLASH_STEP_LAUNCHES.items()} if flash else {}
+        if run["launches"] != exp or not run["finite"]:
+            raise AssertionError(f"(p) steps launched {run['launches']}, expected {exp}")
+    _flash_repeat(sd, batch)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ttts_flash_"))
+    try:
+        cli = _flash_cli(root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"(p) phase (p) {time.perf_counter() - t_phase:.1f} s | card {card}")
+    return {"launches": runs[0]["launches"], "reps": runs[0]["reps"], "cli": cli}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3345,12 +3769,18 @@ def main() -> int:
     library = phase_library(card, rows)
     torch.cuda.empty_cache()
     multi = phase_multigpu(card, rows)
+    torch.cuda.empty_cache()
+    flash = phase_flash_train(card, rows)
     table = []
     for name, (_, _, _, source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
         last = mine[-1]  # the last shape measured: the path's largest
-        table.append({"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": launches[name],
+        # the training route's kernels: launches of phase (p)'s timed flash
+        # steps at the reference context, and of the gpt CLI's run
+        route = {"launches_gpt_flash_train_step": flash["launches"][name] / flash["reps"],
+                 "launches_gpt_flash_cli": flash["cli"][name]} if name in TRAIN_ONLY else {}
+        table.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                      "launches": flash["launches"][name] if route else launches[name], **route,
                       "launches_per_fast_call": per_fast[name],
                       "launches_codec_infer": codec[name],
                       "launches_unipc_fast_call": slice7[name],

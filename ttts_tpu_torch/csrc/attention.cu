@@ -13,6 +13,13 @@
 //     the diagonal tile are masked with the f32 minimum, as attention.py:72-75
 //     does; the diagonal always leaves a row at least one key;
 //   bias + causal, which no caller uses but the TPU kernel computes.
+// The causal mode may also write each row's log-sum-exp of its scaled
+// scores, in log2 units (lse2 = m + log2(l), with m the running maximum of
+// log2(e) * q.k), as an f32 (B, H, T) tensor: the statistic the GPT's
+// training route saves for its backward (attention_bwd.cu), as the library
+// kernel behind ttts_tpu/models/gpt.py _flash_causal_attention saves l and
+// m (jax.experimental.pallas.ops.tpu.flash_attention:758). Serving passes
+// no buffer and writes none.
 // The softmax scale is folded into q (rounded to bf16) and the output
 // normalised after P.V. Scores run in the log2 domain (exp2), P is rounded
 // to bf16 before P.V. The TPU kernel needed T and the block to be multiples
@@ -101,7 +108,8 @@ template <int D, bool CAUSAL, bool BIAS>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const float* __restrict__ strip,
-                  bf16* __restrict__ out, int T, int H, int strip_stride, float scale) {
+                  bf16* __restrict__ out, float* __restrict__ lse, int T, int H,
+                  int strip_stride, float scale) {
   constexpr uint32_t ROW = D * 2;             // bytes per row = the swizzle span
   constexpr uint32_t TILE = FA_BK * ROW;      // bytes per 64-row tile
   constexpr uint32_t LAYOUT = D == 64 ? 1 : 2;  // 128-byte / 64-byte swizzle
@@ -145,16 +153,8 @@ flash_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     }
   }
   mbar_wait(bar_q, 0);
-  for (int i = tid; i < FA_BQ * D / 8; i += FA_THREADS) {  // q * 1/sqrt(D), in place
-    uint4* p = reinterpret_cast<uint4*>(qs) + i;
-    uint4 val = *p;
-    bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-    for (int x = 0; x < 8; ++x) e[x] = __float2bfloat16(__bfloat162float(e[x]) * scale);
-    *p = val;
-  }
-  fence_proxy_async();  // the scaled tile, written by threads, is read by wgmma
-  __syncthreads();      // (and the strip segment is complete)
+  scale_tile_bf16<FA_BQ * D / 8, FA_THREADS>(qs, scale);  // q * 1/sqrt(D), in place
+  __syncthreads();  // (and the strip segment is complete)
 
   const uint64_t dq = wg_desc(sq, 16, SBO, LAYOUT);
   float o[D / 2];  // accumulator (i = 4n + e): rows row0 + 8 (e >> 1), column 8n + 2t4 + (e & 1)
@@ -245,15 +245,8 @@ flash_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     }
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-    // P's A fragments: the accumulators of key columns 16kk..16kk+15
-    uint32_t pa[FA_BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < FA_BK / 16; ++kk) {
-      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
+    uint32_t pa[FA_BK / 16][4];  // P's A fragments
+    pack_a_frags(s, pa);
     const uint64_t dv = wg_desc(sv + stage * TILE, TILE, SBO, LAYOUT);
 #pragma unroll
     for (int kk = 0; kk < FA_BK / 16; ++kk) reg_fence(pa[kk]);
@@ -280,32 +273,21 @@ flash_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + n * 8) =
             pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+      if (lse != nullptr && t4 == 0) lse[((size_t)b * H + h) * T + t] = m[r] + log2f(l[r]);
     }
   }
 }
 
 // ---------------------------------------------------------------- host
 
-// the (B, T, H, D) view with token stride st and head stride sh (elements)
-// as a 4-D tensor map (D, H, T, B) whose box is one 64-token tile of one head
-template <int D>
-static bool tensor_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int st, int sh) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
-                                 (cuuint64_t)T * st * 2};
-  const cuuint32_t box[4] = {D, 1, FA_BK, 1};
-  return bf16_map(map, ptr, 4, dims, strides, box,
-                  D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
-}
-
 template <int D>
 static int flash_dispatch(const void* q, const void* k, const void* v, const float* strip,
-                          void* out, int B, int T, int H, const int (&st)[6], int strip_stride,
-                          int causal, float scale, void* stream) {
+                          void* out, float* lse, int B, int T, int H, const int (&st)[6],
+                          int strip_stride, int causal, float scale, void* stream) {
   CUtensorMap tq, tk, tv;
-  if (!tensor_map<D>(&tq, q, B, T, H, st[0], st[1]) ||
-      !tensor_map<D>(&tk, k, B, T, H, st[2], st[3]) ||
-      !tensor_map<D>(&tv, v, B, T, H, st[4], st[5]))
+  if (!attn_tile_map<D>(&tq, q, B, T, H, st[0], st[1]) ||
+      !attn_tile_map<D>(&tk, k, B, T, H, st[2], st[3]) ||
+      !attn_tile_map<D>(&tv, v, B, T, H, st[4], st[5]))
     return (int)cudaErrorInvalidValue;
   const bool bias = strip != nullptr;
   auto kernel = causal ? (bias ? flash_kernel_sm90<D, true, true>
@@ -320,25 +302,29 @@ static int flash_dispatch(const void* q, const void* k, const void* v, const flo
   }
   const dim3 grid((T + FA_BQ - 1) / FA_BQ, H, B);
   kernel<<<grid, FA_THREADS, smem, TTTS_STREAM(stream)>>>(tq, tk, tv, strip,
-                                                           static_cast<bf16*>(out), T, H,
-                                                           strip_stride, scale);
+                                                           static_cast<bf16*>(out), lse, T,
+                                                           H, strip_stride, scale);
   return (int)cudaGetLastError();
 }
 
 // strip == nullptr selects the no-bias / causal modes; q_st/q_sh etc. are
 // the token and head strides of q, k, v in elements; out is contiguous
-// (B, T, H, D)
+// (B, T, H, D); lse, when not null (causal, no strip), receives the rows'
+// log2-sum-exp2 as a contiguous f32 (B, H, T)
 extern "C" int ttts_flash_attention(const void* q, const void* k, const void* v,
-                                    const void* strip, void* out, int B, int T, int H, int D,
+                                    const void* strip, void* out, void* lse, int B, int T, int H,
+                                    int D,
                                     int q_st, int q_sh, int k_st, int k_sh, int v_st, int v_sh,
                                     int strip_stride, int causal, float scale, void* stream) {
   const int st[6] = {q_st, q_sh, k_st, k_sh, v_st, v_sh};
   const float* bias = static_cast<const float*>(strip);
+  float* stats = static_cast<float*>(lse);
+  if (stats != nullptr && (bias != nullptr || !causal)) return (int)cudaErrorInvalidValue;
   if (D == 32)
-    return flash_dispatch<32>(q, k, v, bias, out, B, T, H, st, strip_stride, causal, scale,
-                              stream);
+    return flash_dispatch<32>(q, k, v, bias, out, stats, B, T, H, st, strip_stride, causal,
+                              scale, stream);
   if (D == 64)
-    return flash_dispatch<64>(q, k, v, bias, out, B, T, H, st, strip_stride, causal, scale,
-                              stream);
+    return flash_dispatch<64>(q, k, v, bias, out, stats, B, T, H, st, strip_stride, causal,
+                              scale, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -278,6 +278,34 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// a 64x64 f32 wgmma accumulator rounded to bf16 as the A fragments of a
+// k16 register-A wgmma: a[kk] holds columns 16kk..16kk+15
+__device__ __forceinline__ void pack_a_frags(const float (&s)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// x * scale rounded to bf16, in place, over N_VEC 16-byte vectors of a
+// bf16 tile in shared memory (elementwise: a swizzle does not matter), by
+// THREADS threads; then fenced for wgmma's reads (the caller syncs)
+template <int N_VEC, int THREADS>
+__device__ __forceinline__ void scale_tile_bf16(uint8_t* tile, float scale) {
+  for (int i = (int)threadIdx.x; i < N_VEC; i += THREADS) {
+    uint4* p = reinterpret_cast<uint4*>(tile) + i;
+    uint4 val = *p;
+    bf16* e = reinterpret_cast<bf16*>(&val);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) e[x] = __float2bfloat16(__bfloat162float(e[x]) * scale);
+    *p = val;
+  }
+  fence_proxy_async();
+}
+
 // ---- host: tensor maps
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -285,20 +313,36 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
-static inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
+// a driver entry point, looked up through the CUDA runtime (no -lcuda)
+static inline void* driver_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
+  cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &found);
 #else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+  cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found);
 #endif
-    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
+  return found == cudaDriverEntryPointSuccess ? p : nullptr;
+}
+
+static inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
   return fn;
+}
+
+typedef CUresult (*CtxGetCurrent)(CUcontext*);
+
+// cuTensorMapEncodeTiled refuses an address when the calling thread has no
+// current context, as a thread that has made no CUDA call yet has none
+// (autograd's backward thread on device 0: torch takes that device as
+// already set). Make the primary context of ptr's device current there.
+static inline bool bind_context(const void* ptr) {
+  static CtxGetCurrent get = reinterpret_cast<CtxGetCurrent>(driver_fn("cuCtxGetCurrent"));
+  CUcontext ctx = nullptr;
+  if (get != nullptr && get(&ctx) == CUDA_SUCCESS && ctx != nullptr) return true;
+  cudaPointerAttributes attr;
+  return cudaPointerGetAttributes(&attr, ptr) == cudaSuccess &&
+         cudaSetDevice(attr.device) == cudaSuccess;
 }
 
 // a tensor of `type` and `rank` dims (innermost first; strides in bytes of
@@ -308,7 +352,7 @@ static inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, const 
                               const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   const EncodeTiled encode = encode_tiled();
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return encode != nullptr &&
+  return encode != nullptr && bind_context(ptr) &&
          encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -326,4 +370,19 @@ static inline bool f32_map(CUtensorMap* map, const void* ptr, cuuint32_t rank,
                            const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ptr, rank, dims, strides, box,
                     swizzle);
+}
+
+// the (B, T, H, D) bf16 view with token stride st and head stride sh
+// (elements) as a 4-D tensor map (D, H, T, B) whose box is one 64-token tile
+// of one head, swizzled by its row (D=64: 128 bytes, D=32: 64): the Q, K, V
+// and dO tiles of the attention kernels
+template <int D>
+static inline bool attn_tile_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int st,
+                                 int sh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
+                                 (cuuint64_t)T * st * 2};
+  const cuuint32_t box[4] = {D, 1, 64, 1};
+  return bf16_map(map, ptr, 4, dims, strides, box,
+                  D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }

@@ -11,7 +11,9 @@ return_latent forward run the flash-attention kernel in its causal mode on
 kernel's domain holds (bf16, dk 64 for decode, chosen once per
 `inference_speech` by `decode_attention.pick`; D 32 or 64 for attention,
 through `attention.attend`), else the kernel's plain version, as the JAX
-package gates its decode kernel.
+package gates its decode kernel. `GPTConfig.fused_decode=False` takes the
+plain decode (decode_attention_plain) outside tensor-parallel serving, as
+JAX's decode_attention_reference.
 
 Dtypes: activations follow the matmul weights' dtype (bf16 after
 `cast_for_inference` on the card; training keeps f32 weights and computes
@@ -21,13 +23,23 @@ heads compute in f32.
 Training (`forward(..., return_latent=False)`, model.train()): the stop
 rewrite, the aligned [start; x] / [x; stop] streams and the text and mel
 cross-entropies, each a mean over every position, with embedding, residual
-and attention dropout (GPT2Stack / GPT2Block). Training attention is
-`F.scaled_dot_product_attention(is_causal=True, dropout_p=...)` in train
-mode where attention dropout is on or autograd records the call, where the
-JAX package runs its einsum path with dropout (its optional TPU flash route
-is a library kernel, not one of the repo's); every other forward goes
-through `attention.attend`, whose gate takes the plain version when autograd
-records the call.
+and attention dropout (GPT2Stack / GPT2Block). Attention without a cache,
+where autograd records the call, takes one of two routes:
+  - `GPTConfig.flash_attention` on and attention dropout inactive (eval
+    mode, or attn_dropout == 0): `attention.FlashCausal` over the fused
+    qkv, the causal kernel saving its softmax statistics and a backward of
+    hand-written kernels (csrc/attention_bwd.cu): JAX's gate at
+    ttts_tpu/models/gpt.py:169-172 for its library flash kernel (JAX takes
+    its einsum path on the CPU; the port's CPU run takes the kernels' plain
+    versions; on the card it needs bf16 compute (train.amp) and a head
+    dim of 32 or 64, and raises otherwise);
+  - else, in train mode, `F.scaled_dot_product_attention(is_causal=True,
+    dropout_p=...)` where JAX runs its einsum path with dropout.
+Every other forward goes through `attention.attend`, whose gate takes the
+plain version when autograd records the call. `GPTConfig.checkpointing`
+recomputes each block in the backward (torch.utils.checkpoint, the
+reference's gradient checkpointing, JAX's nn.remat), with the first pass's
+dropout masks.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ttts_tpu_torch.config import GPTConfig
 from ttts_tpu_torch.models.sampling import SamplingParams, sample_logits
@@ -77,11 +90,14 @@ class LayerNorm(nn.LayerNorm):
 
 class GPT2Block(nn.Module):
     def __init__(self, dim: int, heads: int, dropout: float = 0.0,
-                 attn_dropout: Optional[float] = None):
+                 attn_dropout: Optional[float] = None, flash: bool = False,
+                 fused_decode: bool = True):
         super().__init__()
         self.heads = heads
         self.dropout = dropout  # HF resid_pdrop; attn_pdrop defaults to it
         self.attn_dropout = dropout if attn_dropout is None else attn_dropout
+        self.flash = flash  # GPTConfig.flash_attention: FlashCausal when it applies
+        self.fused_decode = fused_decode
         self.ln_1 = LayerNorm(dim, eps=1e-5)
         self.attn = nn.Module()
         self.attn.c_attn = Conv1D(dim, 3 * dim)
@@ -97,9 +113,10 @@ class GPT2Block(nn.Module):
         rows [pos, pos+T) and attends causally over those fresh rows (the
         prefix is self-contained); T == 1 is one decode step at row `pos`
         through `step`, the decode-attention function (decode_attention.pick's
-        choice, made here when not given). Without: causal self-attention
-        over x; in train mode (no cache), where attention dropout is on or
-        autograd records the call, through SDPA with attention dropout.
+        choice, or the plain decode without fused_decode, made here when not
+        given). Without: causal self-attention over x; where autograd records
+        the call, through FlashCausal with `flash` when attention dropout is
+        inactive, else in train mode through SDPA with attention dropout.
 
         `tp` (a process group of tensor-parallel shards, serving only): this
         rank computes q/k/v and attention for its contiguous heads
@@ -110,15 +127,21 @@ class GPT2Block(nn.Module):
         h = self.heads
         dk = d // h
         if tp is None:
-            q, k, v = self.attn.c_attn(self.ln_1(x)).split(d, dim=-1)
+            qkv = self.attn.c_attn(self.ln_1(x))
         else:
             h = h // dist.get_world_size(tp)
             w, bias = self._local_qkv(tp)
             xn = self.ln_1(x)
-            q, k, v = torch.addmm(bias.to(w.dtype), xn.reshape(-1, d).to(w.dtype),
-                                  w).reshape(b, t, 3 * h * dk).split(h * dk, dim=-1)
-        if cache is not None and t == 1:
-            step = step or decode_attention.pick(q.dtype, dk, q)
+            qkv = torch.addmm(bias.to(w.dtype), xn.reshape(-1, d).to(w.dtype),
+                              w).reshape(b, t, 3 * h * dk)
+        q, k, v = qkv.split(h * dk, dim=-1)
+        flash = (self.flash and cache is None and tp is None and _build.records_grad(qkv)
+                 and not (self.training and self.attn_dropout > 0))
+        if flash:
+            a = attention.FlashCausal.apply(qkv, h)
+        elif cache is not None and t == 1:
+            step = step or (decode_attention.pick(q.dtype, dk, q) if self.fused_decode
+                            else decode_attention.decode_attention_plain)
             a = decode_attention.decode_attention_spmd(
                 q.reshape(b, h, dk), k.reshape(b, h, dk), v.reshape(b, h, dk), *cache, pos,
                 tp, step)
@@ -172,7 +195,8 @@ class UnifiedVoice(nn.Module):
                     self.text_pos_embedding.emb, self.mel_pos_embedding.emb):
             nn.init.normal_(emb.weight, std=0.02)
         self.gpt = nn.Module()
-        self.gpt.h = nn.ModuleList(GPT2Block(c.model_dim, c.heads, c.dropout, c.attn_dropout)
+        self.gpt.h = nn.ModuleList(GPT2Block(c.model_dim, c.heads, c.dropout, c.attn_dropout,
+                                             c.flash_attention, c.fused_decode)
                                    for _ in range(c.layers))
         self.gpt.ln_f = LayerNorm(c.model_dim, eps=1e-5)
         self.final_norm = LayerNorm(c.model_dim, eps=1e-5)
@@ -185,8 +209,13 @@ class UnifiedVoice(nn.Module):
 
     def _stack(self, emb, cache: Optional[Cache] = None, pos: int = 0, step=None, tp=None):
         x = F.dropout(emb.to(self.act_dtype), self.cfg.dropout if self.training else 0.0)
+        remat = self.cfg.checkpointing and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.gpt.h):
-            x = block(x, None if cache is None else cache[i], pos, step, tp)
+            if remat:  # the saved RNG states replay the first pass's dropout masks
+                x = torch.utils.checkpoint.checkpoint(block, x, None, pos, step, tp,
+                                                      use_reentrant=False)
+            else:
+                x = block(x, None if cache is None else cache[i], pos, step, tp)
         return self.gpt.ln_f(x)
 
     def _head(self, h):
@@ -293,7 +322,10 @@ def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     rows = torch.arange(b, device=dev)
     recorded = [p for p in model.parameters() if p.requires_grad] if torch.is_grad_enabled() else []
-    step = decode_attention.pick(model.act_dtype, c.model_dim // c.heads, *recorded)  # once a call
+    if c.fused_decode or tp is not None:  # once a call
+        step = decode_attention.pick(model.act_dtype, c.model_dim // c.heads, *recorded)
+    else:  # JAX's decode_attention_reference (its decode_spmd, here tp, ignores the flag)
+        step = decode_attention.decode_attention_plain
     for i in range(max_generate_length):
         tok = sample_logits(logits, counts, sampling, gumbel[i])
         tok = torch.where(done, c.stop_mel_token, tok)

@@ -35,7 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ttts_vq_nearest": (_P, _P, _P, _I, _I, _I, _P),
     "ttts_decode_attention_bf16": (_P,) * 6 + (_I, _I, _I, _I, _F, _P),
-    "ttts_flash_attention": (_P,) * 5 + (_I,) * 12 + (_F, _P),
+    "ttts_flash_attention": (_P,) * 6 + (_I,) * 12 + (_F, _P),
+    "ttts_flash_causal_backward": (_P,) * 10 + (_I,) * 11 + (_F, _P),
     "ttts_resblock": (_P,) * 15 + (_I, _I, _I, _I, _F, _P),
     "ttts_gn_qkv": (_P,) * 8 + (_I,) * 5 + (_F, _P),
 }
@@ -137,10 +138,13 @@ def launch(name: str, *args) -> None:
 
 def records_grad(*tensors) -> bool:
     """Whether autograd would record a call on these inputs: grad mode is on
-    and a floating input requires grad. The kernels have no backward, so
+    and a floating input requires grad. A raw wrapper records no graph, so
     each dispatch takes its plain (differentiable) version then, as the JAX
     package trains on its XLA paths, and each raw wrapper refuses such
-    inputs rather than return a tensor cut from the graph."""
+    inputs rather than return a tensor cut from the graph. The one route
+    with a backward kernel, the GPT's attention.FlashCausal (the JAX
+    package's library flash kernel and its VJP), is an autograd Function
+    whose forward and backward call the raw wrappers with grad mode off."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.is_floating_point() and t.requires_grad
         for t in tensors)
@@ -149,5 +153,6 @@ def records_grad(*tensors) -> bool:
 def refuse_grad(name: str, *tensors) -> None:
     """Raise when autograd would record `name`'s launch on these inputs."""
     if records_grad(*tensors):
-        raise ValueError(f"{name}: the kernel has no backward; an input requires grad "
-                         "under grad mode (the dispatch takes the plain version then)")
+        raise ValueError(f"{name}: the wrapper records no graph; an input requires grad "
+                         "under grad mode (the dispatch takes the plain version then, the "
+                         "GPT's flash route attention.FlashCausal)")

@@ -165,9 +165,11 @@ Phases, one printed line each, any failure raising (non-zero exit):
   (p) the GPT's long-context training route (gpt.flash_attention, attention
       dropout 0: attention.FlashCausal): the causal kernel with its
       log2-sum-exp2 output and the backward kernels (csrc/attention_bwd.cu)
-      against their plain versions at T = 1, 63, 100, 164 and 1796 (and D=32
-      at T=129), each limit beside its reading and failed by its planted
-      fault in phase (g); the backward from a fresh thread (no current
+      against their plain versions at T = 1, 63, 100, 127, 128, 129, 164,
+      191, 193, 257 and 1796 (and D=32 at T = 127, 129 and 257: the edges
+      of the backward's 64-row tiles and of its 128- and 192-row blocks),
+      each limit beside its reading and failed by its planted fault in
+      phase (g); the backward from a fresh thread (no current
       CUDA context) equal to this thread's; both timed at the reference
       context (B=64, text
       256 + mel 1536: T=1796, H=8, D=64) beside their bound, plain version
@@ -192,6 +194,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -1399,9 +1402,14 @@ def phase_reference(gpu):
 # gn_qkv's multiply-add (B=2, T=1024, x shifted and scaled); in the VQ
 # kernel, ties resolved to the higher index (the key's index bits inverted). Copy 1: the FiLM scale a2 dropped, which
 # every resblock call meets; the mean dropped from gn_qkv's multiply-add;
-# rank 7's codes dropped from the VQ cluster merge. Copy 2: ||e||^2 dropped
-# from the VQ distance (each VQ fault meets every VQ call, so each has its
-# own copy). Each VQ fault is read at the codec's D=192 and at phase (n)'s
+# rank 7's codes dropped from the VQ cluster merge; lse2 in natural log in
+# the causal kernel's lse output and, in the flash backward's dK/dV kernel,
+# the second consumer warpgroup's rows dropped from the store (T=164: key
+# block 0 fills both warpgroups; the backward's plain version is fed the
+# same lse2). Copy 2: ||e||^2 dropped from the VQ distance (each VQ fault
+# meets every VQ call, so each has its own copy); in the flash backward,
+# the dK/dV kernel's causal mask dropped (its diagonal tiles) and dQ's
+# 1/sqrt(D) dropped, read on dk / dv and on dq. Each VQ fault is read at the codec's D=192 and at phase (n)'s
 # RVQ1 (D=1024) and DVAE (D=512) shapes, but rank 7's, which 512 codes never
 # reach (they fill ranks 0-3 of the 8 slices of 128).
 FAULTS = (  # (copy, file, correct text, planted text)
@@ -1425,11 +1433,12 @@ FAULTS = (  # (copy, file, correct text, planted text)
     (1, "vq.cu", "for (int r = 1; r < VQ_RANKS; ++r)", "for (int r = 1; r < VQ_RANKS - 1; ++r)"),
     (2, "vq.cu", "vq_key(nk - 2.f * acc[i][k], j)", "vq_key(-2.f * acc[i][k], j)"),
     (1, "attention.cu", "m[r] + log2f(l[r])", "m[r] + logf(l[r])"),
-    (2, "attention_bwd.cu", "const bool keep = q0 + j < T && !(it == 0 && j < i);",
-     "const bool keep = q0 + j < T;"),
+    (2, "attention_bwd.cu", "keep = q0 + j >= kw0 + i && q0 + j < T;", "keep = q0 + j < T;"),
     (2, "attention_bwd.cu",
      "pack_bf16(acc[4 * n + 2 * r] * scale, acc[4 * n + 2 * r + 1] * scale)",
      "pack_bf16(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1])"),
+    (1, "attention_bwd.cu", "const int t = kw0 + row0 + r * 8;",
+     "const int t = w ? T : kw0 + row0 + r * 8;"),
 )
 COPIES = 1 + max(f[0] for f in FAULTS)
 
@@ -1473,9 +1482,13 @@ def _planted_readings(copy: int, g) -> list:
             (f"dK/dV's diagonal-tile causal mask dropped, dv, {flash}", "rel_l2", BWD_TOL,
              m["dv"]),
             (f"dQ's 1/sqrt(D) dropped, dq, {flash}", "rel_l2", BWD_TOL, m["dq"])]
-    if copy == 1:
-        return [(f"lse2 in natural log (logf for log2f), {flash}", "max_abs", LSE_TOL,
-                 _flash_readings((2, 164, 8, 64), g)["lse"]),
+    if copy == 1:  # the backward is fed the same O and lse2 as its plain version
+        m = _flash_readings((2, 164, 8, 64), g)
+        return [(f"lse2 in natural log (logf for log2f), {flash}", "max_abs", LSE_TOL, m["lse"]),
+                (f"dK/dV's second consumer warpgroup's rows dropped from the store, dk, {flash}",
+                 "rel_l2", BWD_TOL, m["dk"]),
+                (f"dK/dV's second consumer warpgroup's rows dropped from the store, dv, {flash}",
+                 "rel_l2", BWD_TOL, m["dv"]),
                 ("FiLM scale a2 dropped, resblock B=2 T=1600 C=512", "excess", RES_TOL,
                  resblock(2, 1600)),
                 ("GN mean dropped from the multiply-add, gn_qkv B=2 T=1024 C=512", "excess",
@@ -1583,6 +1596,17 @@ def device_us(fn, reps: int = 20) -> str:
                       for name, (n, us) in by_kernel.items())
     again = f", session {attempt}" if attempt > 1 else ""
     return f"{total:.1f} us ({parts}{again})"
+
+
+def device_total_us(reading: str):
+    """The total us of a device_us reading of a call whose every kernel
+    launches at least once, or None where the profiler measured none or
+    dropped events (a kernel read below one launch a call)."""
+    head = reading.split(" ", 1)[0]
+    counts = [float(x) for x in re.findall(r" x([0-9.]+)[,)]", reading)]
+    if not head.replace(".", "", 1).isdigit() or any(n < 1 for n in counts):
+        return None
+    return float(head)
 
 
 def _by_kernel(prof) -> dict:
@@ -3385,9 +3409,12 @@ def phase_multigpu(card: str, rows: list) -> dict:
 #               zero analytically (dq and dk at T=1, where P = 1 and
 #               dS = dO.v - dO.o = 0) is rounding noise on both sides.
 # Readings on an H100 80GB HBM3 (700 W), correct kernels: O 1.8e-3 to
-# 2.1e-3, lse2 <= 1.9e-6, dq / dk / dv 2.4e-3 to 3.2e-3; the planted faults
+# 2.1e-3, lse2 <= 2.9e-6, dq / dk / dv 2.4e-3 to 3.3e-3; the planted faults
 # of phase (g) read far above each limit.
-FLASH_TS = (1, 63, 100, 164, 1796)
+# T at the edges of the backward's 64-row walked tiles, its dK/dV kernel's
+# 128-row blocks and its dQ kernel's 192-row blocks
+FLASH_TS = (1, 63, 100, 127, 128, 129, 164, 191, 193, 257, 1796)
+FLASH_D32_TS = (127, 129, 257)  # the same edges at D=32 (B=2, H=4)
 FLASH_CTX = (64, 1796, 8, 64)  # B, T, H, D: batch 64 of text 256 + mel 1536 (T = 258 + 1538)
 LSE_TOL, BWD_TOL, GRAD_FLOOR = 1e-4, 1e-2, 1e-3
 FLASH_CLI_STEPS = 4  # steps of the gpt CLI's flash run
@@ -3449,8 +3476,8 @@ def _check_flash_kernels(rows, g) -> None:
     """The forward (O, lse2) and backward (dq, dk, dv) kernels against their
     plain versions at each T of FLASH_TS (H=8, D=64; B=4 at T=1796, where
     the plain version's f32 scores are 0.4 GB, B=2 below), and at D=32
-    (T=129, three tiles), each reading beside its limit; then the timed
-    rows at FLASH_CTX."""
+    (B=2, H=4, each T of FLASH_D32_TS), each reading beside its limit; then
+    the timed rows at FLASH_CTX."""
     from ttts_tpu_torch.ops.cuda.attention import (flash_causal_backward,
                                                    flash_causal_backward_plain,
                                                    flash_causal_forward,
@@ -3458,7 +3485,8 @@ def _check_flash_kernels(rows, g) -> None:
 
     worst = {"flash_causal_lse": 0.0, "flash_causal_bwd": 0.0}
     bad = []
-    shapes = [(2 if t < 1796 else 4, t, 8, 64) for t in FLASH_TS] + [(2, 129, 4, 32)]
+    shapes = ([(2 if t < 1796 else 4, t, 8, 64) for t in FLASH_TS]
+              + [(2, t, 4, 32) for t in FLASH_D32_TS])
     for shape in shapes:
         m = _flash_readings(shape, g)
         limits = {"o": ("rel_l2", ATTN_TOL), "lse": ("max_abs", LSE_TOL),
@@ -3528,11 +3556,17 @@ def _check_flash_kernels(rows, g) -> None:
                                                    (qg, kg, vg), dot))
     fb = sum(_flash_bound(b, t, h, d, bw)[0] for bw in (False, True))
     dev = {r["name"]: (device_us(r["run"]), device_us(r["run_library"])) for r in rows[-2:]}
+
+    def ratio(name):  # kernel / library device time, where both were profiled
+        a, b = (device_total_us(x) for x in dev[name])
+        return f"{a / b:.3f}x" if a and b else "not measured"
+
     log(f"(p) forward + backward at {shape}: FlashCausal {flash_ms:.4f} ms, SDPA "
         f"{lib_ms:.4f} ms (CUDA events, one autograd call each), bound {fb:.4f} ms | device "
         f"time (torch.profiler): forward {dev['flash_causal_lse'][0]}, SDPA "
-        f"{dev['flash_causal_lse'][1]}; backward {dev['flash_causal_bwd'][0]}, SDPA's "
-        f"{dev['flash_causal_bwd'][1]}")
+        f"{dev['flash_causal_lse'][1]} (kernel / SDPA {ratio('flash_causal_lse')}); backward "
+        f"{dev['flash_causal_bwd'][0]}, SDPA's backward {dev['flash_causal_bwd'][1]} (kernels "
+        f"/ SDPA's {ratio('flash_causal_bwd')})")
 
 
 def _flash_batch(b: int, device="cuda"):

@@ -5,8 +5,9 @@ backward kernels (flash_causal_backward, csrc/attention_bwd.cu) against
 their plain versions on the same bf16 inputs, FlashCausal's gradient over a
 fused qkv against autograd of the plain version, the launch counts (one
 forward, and two backward: the dQ and the dK/dV kernels), and the route's
-refusal of f32 compute on the card, and the backward launched from a
-thread that has made no CUDA call yet (autograd's backward thread).
+refusal of f32 compute on the card, the backward launched from a thread
+that has made no CUDA call yet (autograd's backward thread), and two
+backward calls on the same inputs bit-equal.
 Imports torch and the port only (the card's machine has no JAX).
 
 Limits, as chip_smoke.py's phase (p): O rel_l2 <= 5e-3 (the kernel rounds P
@@ -56,8 +57,16 @@ def _inputs(g, b, t, h, d):
     return qkv, split_qkv(qkv, h), do
 
 
+# T at the edges of the backward's 64-row walked tiles, its dK/dV kernel's
+# 128-row blocks and its dQ kernel's 192-row blocks (some or all consumer
+# warpgroups of a block holding rows), at D=64 and 32
+EDGES = [(2, t, 8, 64) for t in (127, 128, 129, 191, 192, 193, 257)] + [
+    (2, t, 4, 32) for t in (127, 128, 193, 257)]
+
+
 @pytest.mark.parametrize("b,t,h,d", [(2, 1, 8, 64), (2, 63, 8, 64), (2, 100, 8, 64),
-                                     (2, 164, 8, 64), (1, 1796, 8, 64), (2, 129, 4, 32)])
+                                     (2, 164, 8, 64), (1, 1796, 8, 64), (2, 129, 4, 32)]
+                         + EDGES)
 def test_kernels_match_plain_versions(card, b, t, h, d):
     _, (q, k, v), do = _inputs(card, b, t, h, d)
     o, lse = flash_causal_forward(q, k, v)
@@ -69,6 +78,16 @@ def test_kernels_match_plain_versions(card, b, t, h, d):
     floor = GRAD_FLOOR * float(torch.cat([w.float().flatten() for w in want]).norm())
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert _rel(a, w, floor) <= GRAD_TOL, name
+
+
+@pytest.mark.parametrize("t,d", [(300, 64), (257, 32)])
+def test_backward_repeats_bit_for_bit(card, t, d):
+    """Two raw backward calls on the same inputs give the same bits: no
+    atomics, a fixed order of every sum."""
+    _, (q, k, v), do = _inputs(card, 2, t, 8 if d == 64 else 4, d)
+    o, lse = flash_causal_forward(q, k, v)
+    assert torch.equal(flash_causal_backward(q, k, v, o, lse, do),
+                       flash_causal_backward(q, k, v, o, lse, do))
 
 
 def test_flash_causal_gradient_and_launches(card):

@@ -1,5 +1,5 @@
 """The PyTorch port runs where JAX is not installed: no file of
-ttts_tpu_torch, and not chip_smoke.py or chip_variants.py, may import jax,
+ttts_tpu_torch, and none of the chip scripts (chip_*.py), may import jax,
 flax or optax, nor any ttts_tpu module (the port keeps its own copies of what
 it needs)."""
 
@@ -23,7 +23,7 @@ def _imports(path):
                 yield from (f"ttts_tpu.{a.name}" for a in node.names)
 
 
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_variants.py"]
+FILES = sorted(PKG.rglob("*.py")) + sorted(ROOT.glob("chip_*.py"))
 
 
 def test_package_has_files():

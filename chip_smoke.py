@@ -100,7 +100,10 @@ Phases, one printed line each, any failure raising (non-zero exit):
       largest shape the steps gave it (a row of its own in the kernel
       table) beside cuBLAS's x @ cb.T; one step on the card against the f32
       CPU step at the same weights (the trained codebook), 2 rows and draws,
-      dropout off (GAN_TOL: codes, losses, G and D grad norms and cosines);
+      dropout off (GAN_TOL: codes, losses, G and D grad norms and cosines;
+      the card's step under deterministic algorithms, the CPU's fed the
+      card's codes; two card steps with the default algorithms beside it,
+      their spread logged);
   (m) the rest of the five-stage recipe at default_config() widths, through
       the port's CLIs and trainers: 12 seeded 32 kHz recordings of three
       2-5 s synthetic voices between 0.8 s silences through `pipeline vad`,
@@ -160,16 +163,18 @@ Phases, one printed line each, any failure raising (non-zero exit):
       allocated at (4, 8/tp, 563, 64) for tp = 2 and 4, concatenated equal
       to the full-cache launch exactly and within DECODE_TOL of the plain
       version, timed against its bound (rows decode_attention_tp2 / _tp4,
-      whose launches are those counted on the shards' caches);
+      whose launches are those counted on the shards' caches), and
+      torch.profiler's device time of kernel, plain version and SDPA there;
       the median ms of the NCCL all-reduce of the GPT's gradients;
   (p) the GPT's long-context training route (gpt.flash_attention, attention
-      dropout 0: attention.FlashCausal): the causal kernel with its
-      log2-sum-exp2 output and the backward kernels (csrc/attention_bwd.cu)
-      against their plain versions at T = 1, 63, 100, 127, 128, 129, 164,
-      191, 193, 257 and 1796 (and D=32 at T = 127, 129 and 257: the edges
-      of the backward's 64-row tiles and of its 128- and 192-row blocks),
-      each limit beside its reading and failed by its planted fault in
-      phase (g); the backward from a fresh thread (no current
+      dropout 0: attention.FlashCausal): the forward kernel with its
+      log2-sum-exp2 output (csrc/attention_fwd.cu) and the backward kernels
+      (csrc/attention_bwd.cu) against their plain versions at T = 1, 63, 64,
+      65, 127, 128, 129, 191, 192, 193, 255, 256, 257 at D=64 and D=32 (the
+      edges of the 64-row warpgroups, the forward's 128-key tiles and
+      192-query blocks, the backward's 128- and 192-row blocks) and at T =
+      100, 164 and 1796 at D=64, each limit beside its reading and failed by
+      its planted fault in phase (g); the backward from a fresh thread (no current
       CUDA context) equal to this thread's; both timed at the reference
       context (B=64, text
       256 + mel 1536: T=1796, H=8, D=64) beside their bound, plain version
@@ -229,8 +234,8 @@ KERNELS = {
     "gn_qkv": ("resblock", "fused_gn_qkv", None, RES_SRC, f"{RES_TPU}:243"),
     # the GPT's training route: the library kernel behind ttts_tpu/models/
     # gpt.py:283 (_flash_causal_attention), its forward and its backward
-    "flash_causal_lse": ("attention", "flash_attention", "causal_lse", ATTN_SRC,
-                         f"{FLASH_TPU}:758"),
+    "flash_causal_lse": ("attention", "flash_attention", "causal_lse",
+                         "ttts_tpu_torch/csrc/attention_fwd.cu", f"{FLASH_TPU}:758"),
     "flash_causal_bwd": ("attention", "flash_attention", "causal_bwd",
                          "ttts_tpu_torch/csrc/attention_bwd.cu", f"{FLASH_TPU}:1121 and :1456"),
 }
@@ -358,13 +363,14 @@ BF16_STEP = 2.0 ** -7  # a bf16 rounding step, relative to the rounded value
 def compare(got: torch.Tensor, want: torch.Tensor) -> dict:
     """max_abs; rel_l2 = |got - want|_2 / |want|_2; excess = the largest
     error beyond one bf16 rounding step of the reference value, over
-    max|want|: max(|got - want| - 2^-7 |want|) / max|want|."""
+    max|want|: max(|got - want| - 2^-7 |want|) / max|want| (an all-zero
+    reference: 0 where got is zero too, else inf)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    scale = float(want.abs().max())
+    scale, worst = float(want.abs().max()), float((err - BF16_STEP * want.abs()).max())
     return {"max_abs": float(err.max()),
             "rel_l2": float((got - want).norm() / want.norm()),
-            "excess": float((err - BF16_STEP * want.abs()).max()) / scale}
+            "excess": worst / scale if scale else (math.inf if worst > 0 else 0.0)}
 
 
 def _timed(rows, name, shape, m, metric, tol, run, run_plain, run_library, work):
@@ -1400,17 +1406,23 @@ def phase_reference(gpu):
 # dropped from the merge (B=1, T=1600: no neighbouring batch; x's 32-row
 # partials have no ragged one there); the GroupNorm scale g dropped from
 # gn_qkv's multiply-add (B=2, T=1024, x shifted and scaled); in the VQ
-# kernel, ties resolved to the higher index (the key's index bits inverted). Copy 1: the FiLM scale a2 dropped, which
-# every resblock call meets; the mean dropped from gn_qkv's multiply-add;
-# rank 7's codes dropped from the VQ cluster merge; lse2 in natural log in
-# the causal kernel's lse output and, in the flash backward's dK/dV kernel,
-# the second consumer warpgroup's rows dropped from the store (T=164: key
-# block 0 fills both warpgroups; the backward's plain version is fed the
-# same lse2). Copy 2: ||e||^2 dropped from the VQ distance (each VQ fault
-# meets every VQ call, so each has its own copy); in the flash backward,
-# the dK/dV kernel's causal mask dropped (its diagonal tiles) and dQ's
-# 1/sqrt(D) dropped, read on dk / dv and on dq. Each VQ fault is read at the codec's D=192 and at phase (n)'s
-# RVQ1 (D=1024) and DVAE (D=512) shapes, but rank 7's, which 512 codes never
+# kernel, ties resolved to the higher index (the key's index bits inverted);
+# in the flash route's forward (attention_fwd.cu), the second consumer
+# warpgroup's diagonal mask one key late (T=164: rows 64-127 of the first
+# 192-query block, whose diagonal tile starts 64 keys before them). Copy 1:
+# the FiLM scale a2 dropped, which every resblock call meets; the mean
+# dropped from gn_qkv's multiply-add; rank 7's codes dropped from the VQ
+# cluster merge; log2(l) left out of the flash forward's lse2 and, in the
+# flash backward's dK/dV kernel, the second consumer warpgroup's rows
+# dropped from the store (T=164: key block 0 fills both warpgroups; the
+# backward's plain version is fed the same lse2). Copy 2: ||e||^2 dropped
+# from the VQ distance (each VQ fault meets every VQ call, so each has its
+# own copy); the flash forward's third consumer warpgroup's rows dropped
+# (zeroed) from O (T=164: rows 128-163, whose diagonal tile is the ragged
+# one); in the flash backward, the dK/dV kernel's causal mask dropped (its
+# diagonal tiles) and dQ's 1/sqrt(D) dropped, read on dk / dv and on dq.
+# Each VQ fault is read at the codec's D=192 and at phase (n)'s RVQ1
+# (D=1024) and DVAE (D=512) shapes, but rank 7's, which 512 codes never
 # reach (they fill ranks 0-3 of the 8 slices of 128).
 FAULTS = (  # (copy, file, correct text, planted text)
     (0, "attention.cu", "k0 == q0 && j > i)", "k0 == q0 && j > i + 1)"),
@@ -1432,7 +1444,11 @@ FAULTS = (  # (copy, file, correct text, planted text)
     (1, "resblock.cu", "a[e] = sh[c] - s_mean[g] * m[e];", "a[e] = sh[c];"),
     (1, "vq.cu", "for (int r = 1; r < VQ_RANKS; ++r)", "for (int r = 1; r < VQ_RANKS - 1; ++r)"),
     (2, "vq.cu", "vq_key(nk - 2.f * acc[i][k], j)", "vq_key(-2.f * acc[i][k], j)"),
-    (1, "attention.cu", "m[r] + log2f(l[r])", "m[r] + logf(l[r])"),
+    (0, "attention_fwd.cu", "if (col > row + diag) s[x] = -INFINITY;",
+     "if (col > row + diag + (w == 1)) s[x] = -INFINITY;"),
+    (1, "attention_fwd.cu", "m[r] * c + log2f(l[r])", "m[r] * c"),
+    (2, "attention_fwd.cu", "const float inv = 1.f / l[r];",
+     "const float inv = w == 2 ? 0.f : 1.f / l[r];"),
     (2, "attention_bwd.cu", "keep = q0 + j >= kw0 + i && q0 + j < T;", "keep = q0 + j < T;"),
     (2, "attention_bwd.cu",
      "pack_bf16(acc[4 * n + 2 * r] * scale, acc[4 * n + 2 * r + 1] * scale)",
@@ -1477,6 +1493,8 @@ def _planted_readings(copy: int, g) -> list:
     if copy == 2:
         m = _flash_readings((2, 164, 8, 64), g)
         return vq_shapes("||e||^2 dropped from the VQ distance") + [
+            (f"the flash forward's third consumer warpgroup's rows dropped from O, {flash}",
+             "rel_l2", ATTN_TOL, m["o"]),
             (f"dK/dV's diagonal-tile causal mask dropped, dk, {flash}", "rel_l2", BWD_TOL,
              m["dk"]),
             (f"dK/dV's diagonal-tile causal mask dropped, dv, {flash}", "rel_l2", BWD_TOL,
@@ -1484,7 +1502,8 @@ def _planted_readings(copy: int, g) -> list:
             (f"dQ's 1/sqrt(D) dropped, dq, {flash}", "rel_l2", BWD_TOL, m["dq"])]
     if copy == 1:  # the backward is fed the same O and lse2 as its plain version
         m = _flash_readings((2, 164, 8, 64), g)
-        return [(f"lse2 in natural log (logf for log2f), {flash}", "max_abs", LSE_TOL, m["lse"]),
+        return [(f"log2(l) left out of the flash forward's lse2, {flash}", "max_abs", LSE_TOL,
+                 m["lse"]),
                 (f"dK/dV's second consumer warpgroup's rows dropped from the store, dk, {flash}",
                  "rel_l2", BWD_TOL, m["dk"]),
                 (f"dK/dV's second consumer warpgroup's rows dropped from the store, dv, {flash}",
@@ -1502,7 +1521,10 @@ def _planted_readings(copy: int, g) -> list:
     dec = [torch.randn(*s, generator=g, device="cuda").to(bf)
            for s in [(4, 8, 64)] * 3 + [(4, 8, 563, 64)] * 2]
     ref = [x.float() for x in dec]  # the plain version on f32 copies, as phase (c)
+    m = _flash_readings((2, 164, 8, 64), g)
     return [
+        (f"the flash forward's second consumer warpgroup's diagonal mask one key late, "
+         f"{flash}", "rel_l2", ATTN_TOL, m["o"]),
         ("causal mask off by one key, B=4 T=192 H=8 D=64", "rel_l2", ATTN_TOL,
          compare(fn(q, k, v, causal=True), flash_attention_plain(q, k, v, causal=True))),
         ("ragged-edge key mask removed, no bias, B=4 T=32 H=16 D=64", "rel_l2", ATTN_TOL,
@@ -2115,6 +2137,14 @@ def phase_training(card: str, rows: list) -> dict:
 # <= 2.2e-6); grad norms G <= 6.6e-7, D <= 3.4e-6; least cosine G 0.99994,
 # D 1.00000. The limits are a few times those; one code may split a
 # near-tie (the kernel and the plain version order their sums apart).
+# One run read G's grad norm 2.04e-5 from the CPU's. The card against
+# itself with the default algorithms reads 3.6e-9 to 3.5e-8 (three runs),
+# so cuDNN's choice of algorithm does not explain it; every run's searches
+# hold a row whose two nearest codes differ by 2.9e-5 of the distance, and
+# a code split there (which codes_agree allows) changes the commit loss's
+# gradient. So the held step runs under deterministic algorithms and the
+# CPU step quantizes with the card's codes: G 6.2e-8 to 1.3e-7, D 2.3e-7
+# to 4.3e-6 over three runs, the limits unchanged.
 GAN_TOL = {"codes_agree": 39 / 40, "loss_rel": 5e-4, "grad_norm_rel": 2e-5, "min_cos": 0.9998}
 GAN_STEPS, GAN_SAVE, GAN_BATCH = 8, 4, 8
 GAN_TEXTS = (TEXT, TEXT2, "ta1 shuo1 ming2 tian1 hui4 xia4 yu3")
@@ -2245,7 +2275,12 @@ def _compare_gan(cfg, g_sd, d_sd, batch) -> None:
     """One GAN step, EQ and device warp on, on the card and the CPU (f32
     both) at the same weights, codebook and draws, dropout off (the two
     devices' generators draw other masks); the gradients each optimizer
-    receives are recorded."""
+    receives are recorded. The card's step runs twice with the default
+    algorithms (their spread is logged: the card against itself), then once
+    under deterministic algorithms, the step held against the CPU's. The
+    CPU step quantizes with the card's codes (its own are held to
+    codes_agree), so that a code split at a near-tie does not move the
+    compared losses and gradients."""
     from ttts_tpu_torch.models.discriminator import MultiPeriodDiscriminator
     from ttts_tpu_torch.models.vqvae import SynthesizerTrn
     from ttts_tpu_torch.ops.cuda import vq
@@ -2256,8 +2291,13 @@ def _compare_gan(cfg, g_sd, d_sd, batch) -> None:
     a, t = cfg.audio, cfg.train
     aug = mains.make_vqvae_augment_cfg(cfg)
     seg = t.segment_size // a.hop_length
-    out = {}
-    for dev in ("cuda", "cpu"):
+    draws = None
+
+    def step(dev, feed=None):
+        """(metrics, grads, codes, VQ launches, G and D parameter names, the
+        searches' (x, codebook)) of one step on `dev`; `feed`: the codes each
+        VQ search returns."""
+        nonlocal draws
         gen = SynthesizerTrn(cfg.vqvae, a.filter_length // 2 + 1, seg, for_training=True)
         gen.load_state_dict(g_sd)
         for m in gen.modules():
@@ -2277,15 +2317,16 @@ def _compare_gan(cfg, g_sd, d_sd, batch) -> None:
 
             st.opt.update = update
         b = {k: v.to(dev) for k, v in batch.items()}
-        if dev == "cuda":
+        if draws is None:
             draws = vqvae_draws(7, {k: v.cpu() for k, v in b.items()}, gen, a.hop_length, aug,
                                 device_warp=True)
-        codes = []
+        codes, searched = [], []
         real = vq.nearest
 
         def kept(x, cb):
+            searched.append((x.detach().double().cpu(), cb.detach().double().cpu()))
             codes.append(real(x, cb))
-            return codes[-1]
+            return codes[-1] if feed is None else feed[len(codes) - 1].to(codes[-1])
 
         vq.nearest = kept
         try:
@@ -2295,19 +2336,52 @@ def _compare_gan(cfg, g_sd, d_sd, batch) -> None:
             launched = count("vq_nearest")
         finally:
             vq.nearest = real
-        out[dev] = (metrics, grads, torch.cat([c.cpu().long() for c in codes]), launched,
-                    [n for n, _ in gen.named_parameters()],
-                    [n for n, _ in disc.named_parameters()])
-    (mc, gc, cc, lc, gnames, dnames), (mp, gp, cp, lp, _, _) = out["cuda"], out["cpu"]
+        return (metrics, grads, [c.cpu().long() for c in codes], launched,
+                [n for n, _ in gen.named_parameters()], [n for n, _ in disc.named_parameters()],
+                searched)
+
+    def norm_rel(x, y, side):
+        r = _grad_reading(x[4] if side == "g" else x[5], x[1][side], y[1][side])
+        return abs(r["norm_card"] - r["norm_cpu"]) / r["norm_cpu"], min(r["cos"].values())
+
+    default = [step("cuda") for _ in range(2)]
+    det = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        held = step("cuda")
+    finally:
+        torch.backends.cudnn.deterministic = det[0]
+        torch.use_deterministic_algorithms(det[1])
+    spread = {side: norm_rel(default[0], default[1], side) for side in ("g", "d")}
+    same_codes = all(torch.equal(x, y) for x, y in zip(default[0][2], held[2]))
+    log("(l) GAN step on the card with the default algorithms, twice: G grad norm rel "
+        f"{spread['g'][0]:.3e}, least cosine {spread['g'][1]:.6f}; D grad norm rel "
+        f"{spread['d'][0]:.3e}, least cosine {spread['d'][1]:.6f} (the card against itself; "
+        f"not held) | codes of the default and deterministic steps equal {same_codes}")
+    mc, gc, codes_card, lc, gnames, dnames, _ = held
+    mp, gp, codes_cpu, lp, _, _, searched = step("cpu", feed=codes_card)
+    cc, cp = torch.cat(codes_card), torch.cat(codes_cpu)
     agree = float((cc == cp).float().mean())
+    # how near the CPU's searches came to a split: the least gap between a
+    # row's nearest distance and the next larger one (f64; equal distances
+    # are duplicate codes, which both sides resolve to the first index),
+    # relative to the nearest
+    ties = []
+    for x, cb in searched:
+        d = (cb.square().sum(1)[None] - 2 * x.reshape(-1, cb.shape[1]) @ cb.T).sort(1).values
+        nxt = torch.where(d > d[:, :1], d, math.inf).min(1).values
+        ties.append(float(((nxt - d[:, 0]) / d[:, 0].abs().clamp_min(1e-30)).min()))
     rels = {k: abs(float(mc[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-12) for k in mp}
     readings = {side: _grad_reading(names, gc[side], gp[side])
                 for side, names in (("g", gnames), ("d", dnames))}
-    log(f"(l) GAN step, card vs f32 CPU ({batch['wav'].shape[0]} rows of "
-        f"{batch['wav'].shape[1] // a.hop_length} frames, EQ + device warp, codebook inited): "
-        f"codes agree {agree:.4f} of {cc.numel()} (tol >= {GAN_TOL['codes_agree']}; VQ "
-        f"launches {lc} on the card, {lp} on the CPU) | loss rel errors "
-        + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()) + f" (tol {GAN_TOL['loss_rel']})")
+    log(f"(l) GAN step, card (deterministic algorithms) vs f32 CPU fed the card's codes "
+        f"({batch['wav'].shape[0]} rows of {batch['wav'].shape[1] // a.hop_length} frames, EQ + "
+        f"device warp, codebook inited): the CPU's own codes agree {agree:.4f} of {cc.numel()} "
+        f"(tol >= {GAN_TOL['codes_agree']}; VQ launches {lc} on the card, {lp} on the CPU; "
+        f"least relative gap between a row's two nearest codes {min(ties):.2e}) | "
+        "loss rel errors " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+        + f" (tol {GAN_TOL['loss_rel']})")
     bad = agree < GAN_TOL["codes_agree"] or lc != 1 or lp != 0 or any(
         v > GAN_TOL["loss_rel"] for v in rels.values())
     for side, r in readings.items():
@@ -3297,6 +3371,11 @@ def _decode_shards(rows) -> dict:
                    partial(decode_attention_plain, q0, uk0, uv0, kp, vp, pos),
                    partial(sdpa, q0[:, :, None], ks[:, :, :pos + 1], vs[:, :, :pos + 1]),
                    (4 * b * (h // tp) * (pos + 1) * dk, 6 * bh + 2 * pos * bh))
+    for tp in (2, 4):  # device time at the last position, the path's longest
+        row = [r for r in rows if r["name"] == f"decode_attention_tp{tp}"][-1]
+        log(f"(o) decode_attention_tp{tp} device time at pos {ml - 1} (torch.profiler): "
+            f"kernel {device_us(row['run'])} | plain {device_us(row['run_plain'])} | library "
+            f"(SDPA on the shard's cache) {device_us(row['run_library'])}")
     return shard_launches
 
 
@@ -3394,9 +3473,9 @@ def phase_multigpu(card: str, rows: list) -> dict:
 # ---------------------------------------------------------------------- (p)
 
 # The GPT's long-context training route (GPTConfig.flash_attention with
-# attention dropout 0): attention.FlashCausal, whose forward is the causal
-# kernel with its rows' log2-sum-exp2 (mode "causal_lse") and whose
-# backward is csrc/attention_bwd.cu (mode "causal_bwd", two launches a
+# attention dropout 0): attention.FlashCausal, whose forward is
+# csrc/attention_fwd.cu, O and its rows' log2-sum-exp2 (mode "causal_lse"),
+# and whose backward is csrc/attention_bwd.cu (mode "causal_bwd", two launches a
 # call: the dQ kernel, then the dK/dV kernel). Each against its
 # plain version on the same bf16 inputs (the backward's plain version fed
 # the kernel forward's O and lse2), each limit on the metric beside it:
@@ -3411,10 +3490,12 @@ def phase_multigpu(card: str, rows: list) -> dict:
 # Readings on an H100 80GB HBM3 (700 W), correct kernels: O 1.8e-3 to
 # 2.1e-3, lse2 <= 2.9e-6, dq / dk / dv 2.4e-3 to 3.3e-3; the planted faults
 # of phase (g) read far above each limit.
-# T at the edges of the backward's 64-row walked tiles, its dK/dV kernel's
+# T at the edges of the 64-row warpgroups, the forward's 128-key tiles and
+# 192-query blocks, the backward's 64-row walked tiles, its dK/dV kernel's
 # 128-row blocks and its dQ kernel's 192-row blocks
-FLASH_TS = (1, 63, 100, 127, 128, 129, 164, 191, 193, 257, 1796)
-FLASH_D32_TS = (127, 129, 257)  # the same edges at D=32 (B=2, H=4)
+FLASH_EDGES = (1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 255, 256, 257)
+FLASH_TS = FLASH_EDGES + (100, 164, 1796)
+FLASH_D32_TS = FLASH_EDGES  # the same edges at D=32 (B=2, H=4)
 FLASH_CTX = (64, 1796, 8, 64)  # B, T, H, D: batch 64 of text 256 + mel 1536 (T = 258 + 1538)
 LSE_TOL, BWD_TOL, GRAD_FLOOR = 1e-4, 1e-2, 1e-3
 FLASH_CLI_STEPS = 4  # steps of the gpt CLI's flash run

@@ -1,8 +1,9 @@
 """The GPT training route's kernels on the card (marker `card`; each test
-skips without a CUDA device, decided inside the `card` fixture): the causal
-kernel with its log2-sum-exp2 output (flash_causal_forward) and the
-backward kernels (flash_causal_backward, csrc/attention_bwd.cu) against
-their plain versions on the same bf16 inputs, FlashCausal's gradient over a
+skips without a CUDA device, decided inside the `card` fixture): the
+forward kernel with its log2-sum-exp2 output (flash_causal_forward,
+csrc/attention_fwd.cu; two calls bit-equal) and the backward kernels
+(flash_causal_backward, csrc/attention_bwd.cu) against their plain
+versions on the same bf16 inputs, FlashCausal's gradient over a
 fused qkv against autograd of the plain version, the launch counts (one
 forward, and two backward: the dQ and the dK/dV kernels), and the route's
 refusal of f32 compute on the card, the backward launched from a thread
@@ -57,19 +58,21 @@ def _inputs(g, b, t, h, d):
     return qkv, split_qkv(qkv, h), do
 
 
-# T at the edges of the backward's 64-row walked tiles, its dK/dV kernel's
-# 128-row blocks and its dQ kernel's 192-row blocks (some or all consumer
-# warpgroups of a block holding rows), at D=64 and 32
-EDGES = [(2, t, 8, 64) for t in (127, 128, 129, 191, 192, 193, 257)] + [
-    (2, t, 4, 32) for t in (127, 128, 193, 257)]
+# T at the edges of the 64-row consumer warpgroups, the forward's 128-key
+# tiles and 192-query blocks, the backward's dK/dV 128-row and dQ 192-row
+# blocks (some or all consumer warpgroups of a block holding rows), at D=64
+# and 32
+EDGES = [(2, t, h, d) for h, d in ((8, 64), (4, 32))
+         for t in (1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 255, 256, 257)]
 
 
-@pytest.mark.parametrize("b,t,h,d", [(2, 1, 8, 64), (2, 63, 8, 64), (2, 100, 8, 64),
-                                     (2, 164, 8, 64), (1, 1796, 8, 64), (2, 129, 4, 32)]
+@pytest.mark.parametrize("b,t,h,d", [(2, 100, 8, 64), (2, 164, 8, 64), (1, 1796, 8, 64)]
                          + EDGES)
 def test_kernels_match_plain_versions(card, b, t, h, d):
     _, (q, k, v), do = _inputs(card, b, t, h, d)
     o, lse = flash_causal_forward(q, k, v)
+    o2, lse2 = flash_causal_forward(q, k, v)  # the forward repeats bit for bit
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     o_p, lse_p = flash_causal_forward_plain(q, k, v)
     assert _rel(o, o_p) <= O_TOL
     assert float((lse - lse_p).abs().max()) <= LSE_TOL

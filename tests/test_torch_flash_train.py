@@ -90,7 +90,7 @@ def _close_grads(got, want):
 
 
 @pytest.mark.parametrize("d", [32, 64])
-@pytest.mark.parametrize("t", [1, 17, 64, 100])
+@pytest.mark.parametrize("t", [1, 17, 64, 100, 127, 129, 257])
 def test_plain_versions_match_jax_vjp(t, d):
     q, k, v, do = _inputs(t * 100 + d, t, d)
 
@@ -113,7 +113,7 @@ def test_plain_versions_match_jax_vjp(t, d):
 
 
 @pytest.mark.parametrize("d", [32, 64])
-@pytest.mark.parametrize("t", [1, 17, 64, 100])
+@pytest.mark.parametrize("t", [1, 17, 64, 100, 127, 129, 257])
 def test_plain_backward_matches_autograd(t, d):
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(t + d, t, d))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]

@@ -13,13 +13,8 @@
 //     the diagonal tile are masked with the f32 minimum, as attention.py:72-75
 //     does; the diagonal always leaves a row at least one key;
 //   bias + causal, which no caller uses but the TPU kernel computes.
-// The causal mode may also write each row's log-sum-exp of its scaled
-// scores, in log2 units (lse2 = m + log2(l), with m the running maximum of
-// log2(e) * q.k), as an f32 (B, H, T) tensor: the statistic the GPT's
-// training route saves for its backward (attention_bwd.cu), as the library
-// kernel behind ttts_tpu/models/gpt.py _flash_causal_attention saves l and
-// m (jax.experimental.pallas.ops.tpu.flash_attention:758). Serving passes
-// no buffer and writes none.
+// (The GPT's training route has a causal forward of its own that also
+// writes each row's log-sum-exp: attention_fwd.cu.)
 // The softmax scale is folded into q (rounded to bf16) and the output
 // normalised after P.V. Scores run in the log2 domain (exp2), P is rounded
 // to bf16 before P.V. The TPU kernel needed T and the block to be multiples
@@ -97,19 +92,11 @@ __device__ __forceinline__ float fa_ragged(float x, int k0, int j, int T) {
   return k0 + j < T ? x : -INFINITY;
 }
 
-// 2^x flushing denormals: one MUFU.EX2, without exp2f's range fix-ups
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int D, bool CAUSAL, bool BIAS>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const float* __restrict__ strip,
-                  bf16* __restrict__ out, float* __restrict__ lse, int T, int H,
-                  int strip_stride, float scale) {
+                  bf16* __restrict__ out, int T, int H, int strip_stride, float scale) {
   constexpr uint32_t ROW = D * 2;             // bytes per row = the swizzle span
   constexpr uint32_t TILE = FA_BK * ROW;      // bytes per 64-row tile
   constexpr uint32_t LAYOUT = D == 64 ? 1 : 2;  // 128-byte / 64-byte swizzle
@@ -232,14 +219,14 @@ flash_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       // finite: key k0 < T is valid and, causal, j = 0 <= i in every tile
       const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = BIAS ? ex2_ftz(m[r] - m_new) : exp2f(m[r] - m_new);
+      alpha[r] = BIAS ? exp2_ftz(m[r] - m_new) : exp2f(m[r] - m_new);
       m[r] = m_new;
       l[r] *= alpha[r];
     }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       // the bias modes are bound by the SFUs' exponentials (82 M a trunk call)
-      const float p = BIAS ? ex2_ftz(s[i] - m[(i >> 1) & 1]) : exp2f(s[i] - m[(i >> 1) & 1]);
+      const float p = BIAS ? exp2_ftz(s[i] - m[(i >> 1) & 1]) : exp2f(s[i] - m[(i >> 1) & 1]);
       s[i] = p;
       l[(i >> 1) & 1] += p;
     }
@@ -273,7 +260,6 @@ flash_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + n * 8) =
             pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
-      if (lse != nullptr && t4 == 0) lse[((size_t)b * H + h) * T + t] = m[r] + log2f(l[r]);
     }
   }
 }
@@ -282,7 +268,7 @@ flash_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 
 template <int D>
 static int flash_dispatch(const void* q, const void* k, const void* v, const float* strip,
-                          void* out, float* lse, int B, int T, int H, const int (&st)[6],
+                          void* out, int B, int T, int H, const int (&st)[6],
                           int strip_stride, int causal, float scale, void* stream) {
   CUtensorMap tq, tk, tv;
   if (!attn_tile_map<D>(&tq, q, B, T, H, st[0], st[1]) ||
@@ -302,29 +288,25 @@ static int flash_dispatch(const void* q, const void* k, const void* v, const flo
   }
   const dim3 grid((T + FA_BQ - 1) / FA_BQ, H, B);
   kernel<<<grid, FA_THREADS, smem, TTTS_STREAM(stream)>>>(tq, tk, tv, strip,
-                                                           static_cast<bf16*>(out), lse, T,
-                                                           H, strip_stride, scale);
+                                                           static_cast<bf16*>(out), T, H,
+                                                           strip_stride, scale);
   return (int)cudaGetLastError();
 }
 
 // strip == nullptr selects the no-bias / causal modes; q_st/q_sh etc. are
 // the token and head strides of q, k, v in elements; out is contiguous
-// (B, T, H, D); lse, when not null (causal, no strip), receives the rows'
-// log2-sum-exp2 as a contiguous f32 (B, H, T)
+// (B, T, H, D)
 extern "C" int ttts_flash_attention(const void* q, const void* k, const void* v,
-                                    const void* strip, void* out, void* lse, int B, int T, int H,
-                                    int D,
+                                    const void* strip, void* out, int B, int T, int H, int D,
                                     int q_st, int q_sh, int k_st, int k_sh, int v_st, int v_sh,
                                     int strip_stride, int causal, float scale, void* stream) {
   const int st[6] = {q_st, q_sh, k_st, k_sh, v_st, v_sh};
   const float* bias = static_cast<const float*>(strip);
-  float* stats = static_cast<float*>(lse);
-  if (stats != nullptr && (bias != nullptr || !causal)) return (int)cudaErrorInvalidValue;
   if (D == 32)
-    return flash_dispatch<32>(q, k, v, bias, out, stats, B, T, H, st, strip_stride, causal,
-                              scale, stream);
+    return flash_dispatch<32>(q, k, v, bias, out, B, T, H, st, strip_stride, causal, scale,
+                              stream);
   if (D == 64)
-    return flash_dispatch<64>(q, k, v, bias, out, stats, B, T, H, st, strip_stride, causal,
-                              scale, stream);
+    return flash_dispatch<64>(q, k, v, bias, out, B, T, H, st, strip_stride, causal, scale,
+                              stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -113,42 +113,6 @@ constexpr int fb_smem_bytes() {
 #define FB_COL(n, e) ((n) * 8 + 2 * t4 + ((e) & 1))
 #define FB_ROW(e) (row0 + ((e) >> 1) * 8)
 
-// 2^x flushing denormals: one MUFU.EX2
-__device__ __forceinline__ float fb_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// one arrival on `bar` from the threads where `pred` holds: a predicated
-// instruction, so that no divergent branch sits among the consumers' wgmmas
-__device__ __forceinline__ void fb_arrive_if(uint32_t bar, bool pred) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-      "}\n" ::"r"(bar),
-      "r"((int)pred)
-      : "memory");
-}
-
-// this warp's index, broadcast from lane 0 so that the compiler knows it is
-// uniform: the role branch is then not divergent, and ptxas keeps the
-// consumers' wgmma groups asynchronous
-__device__ __forceinline__ int fb_warp() {
-  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0);
-}
-
-template <int N>
-__device__ __forceinline__ void fb_regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void fb_regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
 // the 128 threads of consumer warpgroup w (named barrier 1 + w)
 __device__ __forceinline__ void fb_wg_sync(int w) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
@@ -167,12 +131,6 @@ __device__ __forceinline__ void fb_scale_tile(uint8_t* tile, int idx, int n, flo
     *p = val;
   }
   fence_proxy_async();
-}
-
-// at most N committed wgmma groups still in flight
-template <int N>
-__device__ __forceinline__ void fb_wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // issue s = a.b^T (64 x 64 over D), both tiles K-major in shared memory, as
@@ -224,7 +182,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 
   // longest first: block x takes the x-th query tile from the end
   const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = fb_warp();
+  const int tid = threadIdx.x, lane = tid & 31, warp = warp_uniform();
   const int n_kt = (min(T, q0 + ROWS) + FB_TILE - 1) / FB_TILE;  // key tiles walked
   const int n_res = min(CWG, (T - q0 + FB_TILE - 1) / FB_TILE);  // warpgroups with rows
 
@@ -239,7 +197,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   __syncthreads();
 
   if (warp >= CWG * 4) {  // the producer warpgroup: one lane keeps the ring full
-    fb_regs_dec<FbBlock<CWG>::PRODUCER_REGS>();
+    regs_dec<FbBlock<CWG>::PRODUCER_REGS>();
     if (warp == CWG * 4 && lane == 0) {
       mbar_expect_tx(bar_res, 2 * n_res * TILE);
       for (int w = 0; w < n_res; ++w) {
@@ -258,7 +216,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     return;
   }
 
-  fb_regs_inc<FbBlock<CWG>::CONSUMER_REGS>();
+  regs_inc<FbBlock<CWG>::CONSUMER_REGS>();
   // consumer warpgroup w: queries r0 .. r0 + 63
   const int w = warp >> 2, ct = tid & 127;
   const int t4 = lane & 3, row0 = (warp & 3) * 16 + (lane >> 2);
@@ -266,7 +224,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   // key tiles up to and including the diagonal (its last, the only masked one)
   const int n_w = r0 < T ? (min(T, r0 + FB_TILE) + FB_TILE - 1) / FB_TILE : 0;
   const size_t bh = ((size_t)b * H + h) * T;
-  auto release = [&](int it) { fb_arrive_if(empty + 8 * (it % FB_STAGES), lane == 0); };
+  auto release = [&](int it) { mbar_arrive_if(empty + 8 * (it % FB_STAGES), lane == 0); };
   if (n_w == 0) {  // no rows (all past T): the walked tiles are released unread
     for (int it = 0; it < n_kt; ++it) {
       mbar_wait(full + 8 * (it % FB_STAGES), (it / FB_STAGES) & 1);
@@ -337,7 +295,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     const int k0 = it * FB_TILE;
     wg_wait_one();  // S, and the previous tile's dQ product: that stage is free
     reg_fence(s);
-    fb_arrive_if(empty + 8 * ((it + FB_STAGES - 1) % FB_STAGES), lane == 0 && it > 0);
+    mbar_arrive_if(empty + 8 * ((it + FB_STAGES - 1) % FB_STAGES), lane == 0 && it > 0);
 #pragma unroll
     for (int n8 = 0; n8 < 8; ++n8)  // P, while dP is in the tensor cores
 #pragma unroll
@@ -349,7 +307,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
           // key j past query r0 + i, or past T
           keep = j <= r0 + FB_ROW(e) && j < T;
         }
-        s[x] = keep ? fb_exp2(fmaf(s[x], c, -lse_r[e >> 1])) : 0.f;
+        s[x] = keep ? exp2_ftz(fmaf(s[x], c, -lse_r[e >> 1])) : 0.f;
       }
     wg_wait_all();  // dP
     reg_fence(dp);
@@ -410,7 +368,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
   // longest first: block x takes key tile x, which walks the most query tiles
   const int k0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = fb_warp();
+  const int tid = threadIdx.x, lane = tid & 31, warp = warp_uniform();
   const int n_qt = (T + FB_TILE - 1) / FB_TILE - k0 / FB_TILE;  // query tiles from k0 on
   const bool two = k0 + FB_TILE < T;  // the second warpgroup has keys
   const size_t bh = ((size_t)b * H + h) * T;
@@ -428,7 +386,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
   __syncthreads();
 
   if (warp >= CWG * 4) {  // the producer warpgroup: its first warp works
-    fb_regs_dec<FbBlock<CWG>::PRODUCER_REGS>();
+    regs_dec<FbBlock<CWG>::PRODUCER_REGS>();
     if (warp > CWG * 4) return;
     if (lane == 0) {
       mbar_expect_tx(bar_res, (two ? 4 : 2) * TILE);
@@ -473,7 +431,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
     return;
   }
 
-  fb_regs_inc<FbBlock<CWG>::CONSUMER_REGS>();
+  regs_inc<FbBlock<CWG>::CONSUMER_REGS>();
   // consumer warpgroup w: keys kw0 .. kw0 + 63
   const int w = warp >> 2;
   const int t4 = lane & 3, row0 = (warp & 3) * 16 + (lane >> 2);
@@ -482,7 +440,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
   const int first = kw0 < T ? w : n_qt;
   const float c = FOLD ? LOG2E * scale : LOG2E;
   const uint32_t my_k = sk + w * TILE, my_v = sv + w * TILE;
-  auto release = [&](int it) { fb_arrive_if(empty + 8 * (it % FB_STAGES), lane == 0); };
+  auto release = [&](int it) { mbar_arrive_if(empty + 8 * (it % FB_STAGES), lane == 0); };
   for (int it = 0; it < first; ++it) {  // query tiles before this warpgroup's keys
     mbar_wait(full + 8 * (it % FB_STAGES), (it / FB_STAGES) & 1);
     release(it);
@@ -517,7 +475,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
   auto step = [&](int it, auto masked, auto last) {
     constexpr bool MASKED = decltype(masked)::value, LAST = decltype(last)::value;
     const int stg = it % FB_STAGES, q0 = k0 + it * FB_TILE;
-    fb_wg_wait<2>();  // S^T
+    wg_wait<2>();  // S^T
     reg_fence(s);
     const float2* lse_s = reinterpret_cast<const float2*>(stats + stg * 128);
     const float2* di_s = lse_s + 32;
@@ -533,11 +491,11 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant
           // query q0 + j before key kw0 + i, or past T
           keep = q0 + j >= kw0 + i && q0 + j < T;
         }
-        s[x] = keep ? fb_exp2(fmaf(s[x], c, -(e & 1 ? l2.y : l2.x))) : 0.f;
+        s[x] = keep ? exp2_ftz(fmaf(s[x], c, -(e & 1 ? l2.y : l2.x))) : 0.f;
       }
     }
     wg_wait_all();  // the previous tile's dV and dK products: that stage is free
-    fb_arrive_if(empty + 8 * ((it + FB_STAGES - 1) % FB_STAGES), lane == 0 && it > first);
+    mbar_arrive_if(empty + 8 * ((it + FB_STAGES - 1) % FB_STAGES), lane == 0 && it > first);
     reg_fence(dp);
     wg_fence();
     fb_issue_s<D>(dp, my_v, ring + (2 * stg + 1) * TILE);  // dP^T = V.dO^T

@@ -116,6 +116,46 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+// one arrival on `bar` from the threads where `pred` holds: a predicated
+// instruction, so that no divergent branch sits among a warpgroup's wgmmas
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
+}
+
+// ---- warp specialisation (sm_90a)
+
+// this warp's index, broadcast from lane 0 so that the compiler knows it is
+// uniform: a role branch on it is then not divergent, and ptxas keeps the
+// consumers' wgmma groups asynchronous
+__device__ __forceinline__ int warp_uniform() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0);
+}
+
+// setmaxnreg: a warpgroup gives registers back to the SM's pool, or takes
+// them from it, N a thread
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// 2^x flushing denormals: one MUFU.EX2, without exp2f's range fix-ups
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---- TMA: a box of a tensor map into shared memory, completing on `bar`.
 // Coordinates are signed, innermost first; elements outside the tensor
 // (a negative coordinate included) arrive as zeros.
@@ -172,6 +212,11 @@ __device__ __forceinline__ void wg_wait_all() {
 // at most one committed group still in flight
 __device__ __forceinline__ void wg_wait_one() {
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+// at most N committed groups still in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keeps the compiler from moving accesses of wgmma's registers across the
@@ -373,16 +418,16 @@ static inline bool f32_map(CUtensorMap* map, const void* ptr, cuuint32_t rank,
 }
 
 // the (B, T, H, D) bf16 view with token stride st and head stride sh
-// (elements) as a 4-D tensor map (D, H, T, B) whose box is one 64-token tile
-// of one head, swizzled by its row (D=64: 128 bytes, D=32: 64): the Q, K, V
-// and dO tiles of the attention kernels
+// (elements) as a 4-D tensor map (D, H, T, B) whose box is one tile of
+// `rows` tokens (at most 256) of one head, swizzled by its row (D=64: 128
+// bytes, D=32: 64): the Q, K, V and dO tiles of the attention kernels
 template <int D>
 static inline bool attn_tile_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int st,
-                                 int sh) {
+                                 int sh, int rows = 64) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
                                  (cuuint64_t)T * st * 2};
-  const cuuint32_t box[4] = {D, 1, 64, 1};
+  const cuuint32_t box[4] = {D, 1, (cuuint32_t)rows, 1};
   return bf16_map(map, ptr, 4, dims, strides, box,
                   D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }

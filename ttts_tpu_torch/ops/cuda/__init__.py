@@ -2,7 +2,8 @@
 
 One module per Pallas file of ttts_tpu/ops/pallas; attention.py also holds
 the GPT's training route (attention.FlashCausal), the port of the library
-flash kernel that ttts_tpu/models/gpt.py calls, with its backward kernels.
+flash kernel that ttts_tpu/models/gpt.py calls, with its forward and
+backward kernels.
 Each wrapper dispatches on the device of its input alone: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel (built from
 ttts_tpu_torch/csrc by `_build`) or raises, as it does on an input that

@@ -10,11 +10,11 @@ each block stages the strip segment its queries meet in shared memory once.
 The launch counts are kept per mode ("bias", "nobias", "causal",
 "bias_causal"), so that a run shows which modes it took.
 
-The GPT's training route (GPTConfig.flash_attention), FlashCausal: the
-causal mode with each row's log-sum-exp saved (flash_attention with `lse`,
-mode "causal_lse" of the same kernel) and its backward,
-csrc/attention_bwd.cu (flash_causal_backward, mode "causal_bwd": a dQ
-kernel, then a dK/dV kernel, two launches a call), replacing the library
+The GPT's training route (GPTConfig.flash_attention), FlashCausal: a causal
+forward that also saves each row's log-sum-exp, csrc/attention_fwd.cu
+(flash_causal_forward, mode "causal_lse" of the same counts), and its
+backward, csrc/attention_bwd.cu (flash_causal_backward, mode "causal_bwd": a
+dQ kernel, then a dK/dV kernel, two launches a call), replacing the library
 kernel behind ttts_tpu/models/gpt.py _flash_causal_attention
 (jax.experimental.pallas.ops.tpu.flash_attention, forward and backward).
 The statistic is in log2 units: lse2 = log2(e) * logsumexp_j(q.k_j /
@@ -112,18 +112,12 @@ def attend(q, k, v, strip=None, causal: bool = False) -> torch.Tensor:
     return fn(q, k, v, strip, causal)
 
 
-def flash_attention(q, k, v, strip=None, causal: bool = False, lse: bool = False):
+def flash_attention(q, k, v, strip=None, causal: bool = False):
     """See flash_attention_plain. On CUDA the inputs are in the kernel's
     domain (kernel_fits): bf16 q, k, v with D in {32, 64}, each possibly a
     strided view of a fused qkv tensor that `_strides` accepts, and none
-    requires grad under grad mode (the wrapper records no graph). With
-    `lse` (causal, no strip: the GPT's training route, mode "causal_lse")
-    → (O, lse2 (B, H, T) f32), as flash_causal_forward_plain."""
-    if lse and (strip is not None or not causal):
-        raise ValueError("flash_attention: lse is the causal mode's, without a strip")
+    requires grad under grad mode (the wrapper records no graph)."""
     if q.device.type == "cpu":
-        if lse:
-            return flash_causal_forward_plain(q, k, v)
         return flash_attention_plain(q, k, v, strip, causal)
     _build.refuse_grad("flash_attention", q, k, v, strip)
     tensors = (k, v) if strip is None else (k, v, strip)
@@ -140,17 +134,15 @@ def flash_attention(q, k, v, strip=None, causal: bool = False, lse: bool = False
         strip = strip.float().contiguous()
         strip_ptr, strip_stride = strip.data_ptr(), strip.stride(0)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-    stats = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if lse else None
     _build.launch("ttts_flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  strip_ptr, out.data_ptr(), stats.data_ptr() if lse else None, b, t, h, d,
-                  *_strides(q, "q"), *_strides(k, "k"), *_strides(v, "v"), strip_stride,
-                  int(causal), 1.0 / math.sqrt(d))
-    flash_attention.launches["causal_lse" if lse else MODES[strip is not None, bool(causal)]] += 1
-    return (out, stats) if lse else out
+                  strip_ptr, out.data_ptr(), b, t, h, d, *_strides(q, "q"), *_strides(k, "k"),
+                  *_strides(v, "v"), strip_stride, int(causal), 1.0 / math.sqrt(d))
+    flash_attention.launches[MODES[strip is not None, bool(causal)]] += 1
+    return out
 
 
-# the serving modes, and the training route's: "causal_lse" (flash_attention
-# with lse) and "causal_bwd" (flash_causal_backward's two kernels)
+# the serving modes, and the training route's: "causal_lse"
+# (flash_causal_forward) and "causal_bwd" (flash_causal_backward's two kernels)
 flash_attention.launches = dict.fromkeys((*MODES.values(), "causal_lse", "causal_bwd"), 0)
 
 
@@ -186,8 +178,26 @@ def flash_causal_backward_plain(q, k, v, o, lse, do):
 
 
 def flash_causal_forward(q, k, v):
-    """flash_attention(q, k, v, causal=True, lse=True) → (O, lse2)."""
-    return flash_attention(q, k, v, causal=True, lse=True)
+    """See flash_causal_forward_plain → (O (B, T, H, D), lse2 (B, H, T)
+    f32). On CUDA one launch of csrc/attention_fwd.cu (counted under
+    "causal_lse"): q, k, v in the kernel's domain (kernel_fits) as views
+    that `_strides` accepts, none requiring grad under grad mode."""
+    if q.device.type == "cpu":
+        return flash_causal_forward_plain(q, k, v)
+    _build.refuse_grad("flash_causal_forward", q, k, v)
+    if q.device.type != "cuda" or any(x.device != q.device for x in (k, v)):
+        raise ValueError("flash_causal_forward: all tensors must be on one CUDA device")
+    why = _unsupported(q, k, v)
+    if why:
+        raise ValueError(f"flash_causal_forward: {why}")
+    b, t, h, d = q.shape
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    _build.launch("ttts_flash_causal_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), lse.data_ptr(), b, t, h, d, *_strides(q, "q"),
+                  *_strides(k, "k"), *_strides(v, "v"), 1.0 / math.sqrt(d))
+    flash_attention.launches["causal_lse"] += 1
+    return out, lse
 
 
 def flash_causal_backward(q, k, v, o, lse, do) -> torch.Tensor:

@@ -1,0 +1,12 @@
+"""The flash route's causal forward over the traced steps: one launch a
+layer and step at (rows, T = text + 2 + mel + 2, heads, head dim)."""
+
+from portbench.readers import roofline_share
+
+
+def read(r):
+    g = r.ctx.cfg["ttts"]["gpt"]
+    h, d = g["heads"], g["model_dim"] // g["heads"]
+    launches = [(g["layers"], (rec["rows"], rec["text_pad"] + rec["mel_pad"] + 4, h, d))
+                for rec in r.traced]
+    return roofline_share(r, "flash_fwd", launches)

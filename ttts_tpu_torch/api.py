@@ -37,8 +37,9 @@ unsharded one draws.
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -68,6 +69,7 @@ from ttts_tpu_torch.parallel.mesh import (
     replicate,
     shard_batch,
 )
+from ttts_tpu_torch.utils.logging import span
 
 PRESETS = {
     "ultra_fast": {"num_autoregressive_samples": 1, "diffusion_iterations": 30},
@@ -113,6 +115,44 @@ class Draws:
         return torch.randn(shape, generator=self.gen, device=self.device)
 
 
+class _Stages:
+    """The stages of one call: each runs inside a `ttts.stage.<name>` span
+    (utils.logging.span) and, when `timed`, between two CUDA events on a
+    card (two readings of the host clock on the CPU), read by `times` once
+    the call's own last copy to the host has synchronised. Untimed, no
+    event is made."""
+
+    def __init__(self, timed: bool, device: torch.device):
+        self.marks = [] if timed else None
+        self.device = device
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        with span("ttts.stage." + name):
+            if self.marks is None:
+                yield
+            else:
+                start = self._now()
+                yield
+                self.marks.append((name, start, self._now()))
+
+    def _now(self):
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def times(self) -> Dict[str, float]:
+        """{stage: seconds} of the timed stages ({} untimed)."""
+        if not self.marks:
+            return {}
+        if self.device.type != "cuda":
+            return {name: end - start for name, start, end in self.marks}
+        self.marks[-1][2].synchronize()  # recorded after the call's last copy
+        return {name: start.elapsed_time(end) / 1e3 for name, start, end in self.marks}
+
+
 class TextToSpeech:
     """Resident-model serving orchestrator."""
 
@@ -147,8 +187,8 @@ class TextToSpeech:
             for m in (self.gpt, self.diffusion) + clvp:
                 cast_for_inference(m)
         self._cond_cache: Dict[str, tuple] = {}
-        # when True, tts synchronises after each stage and records wall times
-        # (perf analysis only: the syncs serialise host and device)
+        # when True, each call times its stages (_Stages: CUDA events, no
+        # synchronise) into last_stage_times, seconds a stage
         self.profile_stages = False
         self.last_stage_times: Dict[str, float] = {}
         # the last call's draw: every candidate's codes (N*k, max_gen), the
@@ -235,15 +275,6 @@ class TextToSpeech:
 
     # ------------------------------------------------------------------ tts
 
-    def _mark(self, times: Optional[Dict[str, float]], name: str, t0: float) -> float:
-        if times is None or not self.profile_stages:
-            return t0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        times[name] = now - t0
-        return now
-
     def tts(self, text: str, voice_wav: np.ndarray, voice_sample_rate: int,
             preset: str = "fast", max_generate_length: int = 400, seed: int = 0,
             voice_cache_key: Optional[str] = None, draws: Optional[Draws] = None) -> np.ndarray:
@@ -262,70 +293,75 @@ class TextToSpeech:
         (argmax inside each block of k), one tail batch bucketed by the
         longest winner, each waveform trimmed to its own code length.
         `draws` overrides the random draws (default: Draws(seed, device))."""
-        t0 = time.perf_counter()
-        conditioning = self.get_conditioning(voice_wav, voice_sample_rate, voice_cache_key)
-        return self._tts_batch(texts, conditioning, preset, max_generate_length,
-                               draws or Draws(seed, self.device), t0)
+        return self._tts_batch(
+            texts, lambda: self.get_conditioning(voice_wav, voice_sample_rate, voice_cache_key),
+            preset, max_generate_length, draws or Draws(seed, self.device))
 
-    def _tts_batch(self, texts: Sequence[str], conditioning, preset: str,
-                   max_generate_length: int, draws: Draws, t0: float) -> List[np.ndarray]:
-        """tts_batch from the voice's conditioning (get_conditioning's
-        output); `t0` starts the "conditioning" stage time."""
+    def _tts_batch(self, texts: Sequence[str], conditioning: Callable[[], tuple], preset: str,
+                   max_generate_length: int, draws: Draws) -> List[np.ndarray]:
+        """tts_batch with the voice's conditioning from `conditioning()`
+        (get_conditioning's output). The stages, in this order, tile the
+        call: conditioning, gpt_decode, clvp_rerank, select, tail's three,
+        to_host."""
         opts = PRESETS[preset]
         k, n = opts["num_autoregressive_samples"], len(texts)
         c, dev = self.cfg, self.device
-        times: Dict[str, float] = {}
+        stage = _Stages(self.profile_stages, dev)
 
-        ids = [np.asarray(self.tok.encode(text_to_pinyin(t)), np.int64) for t in texts]
-        lt = _round_up(max(len(i) for i in ids), 16)
-        text_ids = torch.as_tensor(np.stack([np.pad(i, (0, lt - len(i))) for i in ids]),
-                                   device=dev)
-        prompt_codes, refer_mel = conditioning
-        lp = _round_up(prompt_codes.shape[1], 16)
-        prompt_codes = torch.nn.functional.pad(prompt_codes, (0, lp - prompt_codes.shape[1]))
-        t0 = self._mark(times, "conditioning", t0)
+        with stage("conditioning"):
+            prompt_codes, refer_mel = conditioning()
+            ids = [np.asarray(self.tok.encode(text_to_pinyin(t)), np.int64) for t in texts]
+            lt = _round_up(max(len(i) for i in ids), 16)
+            text_ids = torch.as_tensor(np.stack([np.pad(i, (0, lt - len(i))) for i in ids]),
+                                       device=dev)
+            lp = _round_up(prompt_codes.shape[1], 16)
+            prompt_codes = torch.nn.functional.pad(prompt_codes,
+                                                   (0, lp - prompt_codes.shape[1]))
 
         rows = n * k
-        text_b = text_ids.repeat_interleave(k, dim=0)
-        # the global batch's draws on every rank; each rank takes its rows
-        gumbel = draws.gumbel((max_generate_length, rows, c.gpt.number_mel_codes))
-        codes = inference_speech(
-            self.gpt, self._local(text_b, rows), self._local(prompt_codes.expand(rows, -1), rows),
-            max_generate_length, SamplingParams(top_p=0.8, temperature=0.8,
-                                                repetition_penalty=2.0),
-            self._local(gumbel, rows, 1), self._tp)
-        codes = self._whole(codes, rows)
-        t0 = self._mark(times, "gpt_decode", t0)
-        if k > 1:
-            sims = self.clvp(self._local(text_b, rows), self._local(codes, rows))
-            sims = self._whole(sims, rows).reshape(n, k)
-            best = (sims.argmax(dim=1) + torch.arange(n, device=dev) * k).tolist()
-        else:
-            best = list(range(n))
-        t0 = self._mark(times, "clvp_rerank", t0)
+        with stage("gpt_decode"):
+            text_b = text_ids.repeat_interleave(k, dim=0)
+            # the global batch's draws on every rank; each rank takes its rows
+            gumbel = draws.gumbel((max_generate_length, rows, c.gpt.number_mel_codes))
+            codes = inference_speech(
+                self.gpt, self._local(text_b, rows),
+                self._local(prompt_codes.expand(rows, -1), rows), max_generate_length,
+                SamplingParams(top_p=0.8, temperature=0.8, repetition_penalty=2.0),
+                self._local(gumbel, rows, 1), self._tp)
+            codes = self._whole(codes, rows)
+        with stage("clvp_rerank"):
+            if k > 1:
+                sims = self.clvp(self._local(text_b, rows), self._local(codes, rows))
+                sims = self._whole(sims, rows).reshape(n, k)
+                best = (sims.argmax(dim=1) + torch.arange(n, device=dev) * k).tolist()
+            else:
+                best = list(range(n))
 
-        arr = codes.cpu().numpy()
-        code_lens = []
-        for row in arr[best]:
-            stops = np.where(row == c.gpt.stop_mel_token)[0]
-            code_lens.append(max(int(stops[0]) if len(stops) else row.shape[0], 1))
-        bucket = code_bucket(max(code_lens), arr.shape[1])
-        clean = np.stack([np.where(np.arange(arr.shape[1]) < cl, row, 0)[:bucket]
-                          for row, cl in zip(arr[best], code_lens)])
-        noise = draws.normal((n, bucket * 4, c.diffusion_net.in_channels))
-        mine = self._local(torch.arange(n), n).tolist()
-        _, wav = self.tail(self._local(text_ids, n),
-                           self._local(torch.as_tensor(clean, device=dev), n),
-                           [code_lens[i] for i in mine], refer_mel, self._local(noise, n),
-                           opts["diffusion_iterations"], times)
-        wav = self._whole(wav, n)
-        self.last_stage_times = times
+        with stage("select"):
+            arr = codes.cpu().numpy()
+            code_lens = []
+            for row in arr[best]:
+                stops = np.where(row == c.gpt.stop_mel_token)[0]
+                code_lens.append(max(int(stops[0]) if len(stops) else row.shape[0], 1))
+            bucket = code_bucket(max(code_lens), arr.shape[1])
+            clean = np.stack([np.where(np.arange(arr.shape[1]) < cl, row, 0)[:bucket]
+                              for row, cl in zip(arr[best], code_lens)])
+            noise = draws.normal((n, bucket * 4, c.diffusion_net.in_channels))
+            mine = self._local(torch.arange(n), n).tolist()
+            tail_in = (self._local(text_ids, n),
+                       self._local(torch.as_tensor(clean, device=dev), n),
+                       [code_lens[i] for i in mine], refer_mel, self._local(noise, n))
+        _, wav = self.tail(*tail_in, opts["diffusion_iterations"], stage)
+
+        with stage("to_host"):
+            # exact audio = code_len x 4 mel frames x hop samples (Vocos yields
+            # (frames - 1) x hop, so a full bucket comes out one hop short)
+            wav = self._whole(wav, n).cpu().numpy()
+            hop = c.vocos.hop_length
+            out = [wav[i, : cl * 4 * hop] for i, cl in enumerate(code_lens)]
+        self.last_stage_times = stage.times()
         self.last_codes, self.last_best, self.last_code_lens = arr, best, code_lens
-        # exact audio = code_len x 4 mel frames x hop samples (Vocos yields
-        # (frames - 1) x hop, so a full bucket comes out one hop short)
-        wav = wav.cpu().numpy()
-        hop = c.vocos.hop_length
-        return [wav[i, : cl * 4 * hop] for i, cl in enumerate(code_lens)]
+        return out
 
     @torch.no_grad()
     def tts_batch_many(self, batches: Sequence[Sequence[str]], voice_wav: np.ndarray,
@@ -339,32 +375,33 @@ class TextToSpeech:
         batch i's tail, as the JAX package does, waits for a decode loop
         captured in CUDA graphs."""
         conditioning = self.get_conditioning(voice_wav, voice_sample_rate, voice_cache_key)
-        return [self._tts_batch(texts, conditioning, preset, max_generate_length,
-                                Draws(seed + i, self.device), time.perf_counter())
+        return [self._tts_batch(texts, lambda: conditioning, preset, max_generate_length,
+                                Draws(seed + i, self.device))
                 for i, texts in enumerate(batches)]
 
     @torch.no_grad()
     def tail(self, text_ids, codes, code_lens: Sequence[int], refer_mel, noise, steps: int,
-             times: Optional[Dict[str, float]] = None):
+             stage: Optional[_Stages] = None):
         """GPT latent → diffusion → Vocos for drawn codes (N, bucket), row i
         zero past `code_lens[i]`; `refer_mel` (1, Tr, n_mels) serves every
         row; `noise` (N, 4 * bucket, n_mels) starts the sampler. Returns
-        (mel (N, 4 * bucket, n_mels), waveform (N, L))."""
+        (mel (N, 4 * bucket, n_mels), waveform (N, L)). `stage`: the call's
+        _Stages (untimed spans by default)."""
         c, dev, net = self.cfg, self.device, self.diffusion
+        stage = stage or _Stages(False, dev)
         b = codes.shape[0]
-        t0 = time.perf_counter()
-        latent = self.gpt(text_ids, torch.full((b,), text_ids.shape[1], device=dev), codes,
-                          torch.as_tensor(code_lens, device=dev) * 1024, return_latent=True)
-        out_len = codes.shape[1] * 4
-        refer = normalize_tacotron_mel(refer_mel).expand(b, -1, -1)
-        cond = net.timestep_independent(latent, refer, out_len)
-        strips = net.rel_biases(out_len)
-        eps_fn = cfg_eps_fn(lambda x2, t2, e2: net.trunk(x2, t2, e2, strips), cond,
-                            net.unconditioned(b, out_len), c.diffusion.cond_free_k)
-        t0 = self._mark(times, "latent_and_cond", t0)
-        mel = denormalize_tacotron_mel(
-            get_ode_sampler(c.diffusion.sampler)(eps_fn, noise, steps=steps))
-        t0 = self._mark(times, "diffusion", t0)
-        wav = self.vocos(mel)
-        self._mark(times, "vocos", t0)
+        with stage("latent_and_cond"):
+            latent = self.gpt(text_ids, torch.full((b,), text_ids.shape[1], device=dev), codes,
+                              torch.as_tensor(code_lens, device=dev) * 1024, return_latent=True)
+            out_len = codes.shape[1] * 4
+            refer = normalize_tacotron_mel(refer_mel).expand(b, -1, -1)
+            cond = net.timestep_independent(latent, refer, out_len)
+            strips = net.rel_biases(out_len)
+            eps_fn = cfg_eps_fn(lambda x2, t2, e2: net.trunk(x2, t2, e2, strips), cond,
+                                net.unconditioned(b, out_len), c.diffusion.cond_free_k)
+        with stage("diffusion"):
+            mel = denormalize_tacotron_mel(
+                get_ode_sampler(c.diffusion.sampler)(eps_fn, noise, steps=steps))
+        with stage("vocos"):
+            wav = self.vocos(mel)
         return mel, wav

@@ -57,6 +57,7 @@ from ttts_tpu_torch.config import GPTConfig
 from ttts_tpu_torch.models.sampling import SamplingParams, sample_logits
 from ttts_tpu_torch.ops.cuda import _build, attention, decode_attention
 from ttts_tpu_torch.parallel.mesh import all_gather
+from ttts_tpu_torch.utils.logging import span
 
 Cache = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -308,7 +309,9 @@ def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
     tensor-parallel shards over the heads (JAX's tp_shards / decode_spmd,
     gpt.py:474): the parameters stay replicated, each rank holds and
     attends over its own heads' caches through the decode kernel, and every
-    rank draws the same tokens from the same `gumbel`."""
+    rank draws the same tokens from the same `gumbel`. Each iteration is a
+    `ttts.gpt.decode_step` span, its draw through the writes of the drawn
+    tokens a `ttts.gpt.sample` span inside it (utils.logging.span)."""
     c = model.cfg
     b = text_inputs.shape[0]
     prefix_len = text_inputs.shape[1] + 2 + prompt_codes.shape[1] + 1
@@ -327,12 +330,14 @@ def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
     else:  # JAX's decode_attention_reference (its decode_spmd, here tp, ignores the flag)
         step = decode_attention.decode_attention_plain
     for i in range(max_generate_length):
-        tok = sample_logits(logits, counts, sampling, gumbel[i])
-        tok = torch.where(done, c.stop_mel_token, tok)
-        done = done | (tok == c.stop_mel_token)
-        counts[rows, tok] += 1
-        tokens[:, i] = tok
-        if bool(done.all()):
-            break
-        logits = model.decode_one(tok, cache, prefix_len + i, mel_off + i, step, tp)
+        with span("ttts.gpt.decode_step"):
+            with span("ttts.gpt.sample"):
+                tok = sample_logits(logits, counts, sampling, gumbel[i])
+                tok = torch.where(done, c.stop_mel_token, tok)
+                done = done | (tok == c.stop_mel_token)
+                counts[rows, tok] += 1
+                tokens[:, i] = tok
+            if bool(done.all()):
+                break
+            logits = model.decode_one(tok, cache, prefix_len + i, mel_off + i, step, tp)
     return tokens

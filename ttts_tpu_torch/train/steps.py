@@ -40,6 +40,12 @@ as such (the CLVP's InfoNCE over the gathered latents, the KL's mask count,
 the codebook's statistics). Dropout draws from the key offset by the data
 rank (rank 0's stream is the single process's), so a step with dropout
 matches the single process in distribution only.
+
+Spans (utils.logging.span, seen only while a profiler records): a step's
+single loss computation is `ttts.train.forward`, every `_grads` is
+`ttts.train.backward`, and every optimizer update (with the non-finite
+check and the clip of `apply_gradients_safe`, and the EMA) is
+`ttts.train.update`.
 """
 
 from __future__ import annotations
@@ -68,6 +74,7 @@ from ttts_tpu_torch.parallel.mesh import (
     shard_batch,
 )
 from ttts_tpu_torch.train.state import GanState, TrainState, ema_update, global_norm
+from ttts_tpu_torch.utils.logging import span
 
 
 optax_global_norm = global_norm  # the JAX package's name
@@ -107,7 +114,8 @@ def autocast(device: torch.device, amp_dtype: Optional[torch.dtype]):
 
 
 def _grads(loss: torch.Tensor, params: List[torch.Tensor]):
-    return torch.autograd.grad(loss, params, allow_unused=True)
+    with span("ttts.train.backward"):
+        return torch.autograd.grad(loss, params, allow_unused=True)
 
 
 def _dropout_key(key: int, mesh) -> int:
@@ -153,14 +161,16 @@ def gpt_train_step(state: TrainState, batch, key: int, text_weight: float = 0.01
     """batch: text (B, Lt), text_lengths, mel_codes (B, Lm), wav_lengths."""
     model = state.model.train()
     dev = _device(model)
-    with seeded(_dropout_key(key, mesh), dev), autocast(dev, amp_dtype):
+    with span("ttts.train.forward"), seeded(_dropout_key(key, mesh), dev), \
+            autocast(dev, amp_dtype):
         loss, lt, lm = gpt_loss(model, batch, text_weight, mel_weight)
     grads, (loss, lt, lm) = _mean_over_ranks(mesh, _grads(loss, state.params), loss, lt, lm)
-    norm, finite, fired = apply_gradients_safe(state, grads)
-    if state.ema is not None and finite and fired:
-        # only when an update was applied: under accumulation, decaying on
-        # every micro-step would compound the decay
-        ema_update(state.ema, state.params)
+    with span("ttts.train.update"):
+        norm, finite, fired = apply_gradients_safe(state, grads)
+        if state.ema is not None and finite and fired:
+            # only when an update was applied: under accumulation, decaying on
+            # every micro-step would compound the decay
+            ema_update(state.ema, state.params)
     return {"loss": loss, "loss_text": lt, "loss_mel": lm,
             "grad_norm": norm, "nonfinite_skipped": 0.0 if finite else 1.0}
 
@@ -226,10 +236,12 @@ def diffusion_train_step(state: TrainState, batch, key: int, diffuser, gpt_model
         draws = diffusion_draws(key, batch["mel"].shape, diffuser.num_timesteps,
                                 len(net.layers), unconditioned_percentage,
                                 net.cfg.layer_drop, dev, mesh)
-    with seeded(_dropout_key(key, mesh), dev), autocast(dev, amp_dtype):
+    with span("ttts.train.forward"), seeded(_dropout_key(key, mesh), dev), \
+            autocast(dev, amp_dtype):
         loss, mse, vb = diffusion_loss(net, diffuser, batch, latent, draws)
     grads, (loss, mse, vb) = _mean_over_ranks(mesh, _grads(loss, state.params), loss, mse, vb)
-    norm, finite, _ = apply_gradients_safe(state, grads)
+    with span("ttts.train.update"):
+        norm, finite, _ = apply_gradients_safe(state, grads)
     return {"loss": loss, "mse": mse, "vb": vb,
             "grad_norm": norm, "nonfinite_skipped": 0.0 if finite else 1.0}
 
@@ -328,7 +340,8 @@ def vqvae_train_step(state: GanState, batch, key: int, audio_cfg, c_mel: float =
     yr, yg, _, _ = disc(y_real, y_hat.detach())
     loss_disc, _, _ = discriminator_loss(yr, yg)
     grads, (loss_disc,) = _mean_over_ranks(mesh, _grads(loss_disc, state.d.params), loss_disc)
-    state.d.opt.update(grads)
+    with span("ttts.train.update"):
+        state.d.opt.update(grads)
     state.d.step += 1
     # generator step through the updated discriminator; the gradients of
     # G's parameters only (D gathers none from this loss)
@@ -345,7 +358,8 @@ def vqvae_train_step(state: GanState, batch, key: int, audio_cfg, c_mel: float =
     loss_gen_all = loss_mel + loss_kl + loss_fm + loss_adv + commit
     grads, metrics = _mean_over_ranks(mesh, _grads(loss_gen_all, state.g.params), loss_gen_all,
                                       loss_mel, loss_kl, loss_fm, loss_adv, commit)
-    state.g.opt.update(grads)
+    with span("ttts.train.update"):
+        state.g.opt.update(grads)
     state.g.step += 1
     return dict(zip(("loss_disc", "loss_gen_all", "loss_mel", "loss_kl", "loss_fm",
                      "loss_adv", "commit_loss"), [loss_disc] + metrics))
@@ -388,10 +402,12 @@ def clvp_train_step(state: TrainState, batch, key: int,
     if draws is None:
         draws = clvp_draws(key, model.cfg, batch["text"].shape, batch["speech_tokens"].shape,
                            dev, mesh)
-    with seeded(_dropout_key(key, mesh), dev), autocast(dev, amp_dtype):
+    with span("ttts.train.forward"), seeded(_dropout_key(key, mesh), dev), \
+            autocast(dev, amp_dtype):
         loss = clvp_loss(model, batch, draws, mesh)
     grads, (loss,) = _mean_over_ranks(mesh, _grads(loss, state.params), loss)
-    norm, finite, _ = apply_gradients_safe(state, grads)
+    with span("ttts.train.update"):
+        norm, finite, _ = apply_gradients_safe(state, grads)
     return {"loss": loss, "grad_norm": norm,
             "nonfinite_skipped": 0.0 if finite else 1.0}
 
@@ -403,9 +419,10 @@ def classifier_train_step(state: TrainState, batch, key: int, mesh=None):
     """batch: mel (B, T, spec_dim), labels (B,). One update, whatever the
     gradients hold (no non-finite skip, as JAX's step)."""
     model = state.model.train()
-    with seeded(_dropout_key(key, mesh), _device(model)):
+    with span("ttts.train.forward"), seeded(_dropout_key(key, mesh), _device(model)):
         loss = model(batch["mel"], labels=batch["labels"])
     grads, (loss,) = _mean_over_ranks(mesh, _grads(loss, state.params), loss)
-    state.opt.update(grads)
+    with span("ttts.train.update"):
+        state.opt.update(grads)
     state.step += 1
     return {"loss": loss}

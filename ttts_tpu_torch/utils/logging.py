@@ -14,7 +14,9 @@ arrays themselves, so training needs no matplotlib). `get_logger` is the
 JAX package's file + console logger. `profile_trace(logdir)` traces the
 block with torch.profiler (the host and, where there is one, the card) and
 writes a Chrome trace under logdir, as the JAX package's jax.profiler
-trace; a None logdir traces nothing.
+trace; a None logdir traces nothing. `span(name)` names a stretch of the
+program in such a trace (a torch.profiler host range, on the clock the
+device events share) and costs a flag test when no profiler records.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 
 class SummaryWriter:
@@ -111,7 +114,6 @@ def profile_trace(logdir: Optional[str]):
         return
     import os
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     out = pathlib.Path(logdir)
@@ -121,3 +123,15 @@ def profile_trace(logdir: Optional[str]):
         yield prof
     n = len(list(out.glob(f"trace_{os.getpid()}_*.json")))
     prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{n}.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host range `name` (every span of the program is named `ttts.*`)
+    while a torch.profiler session records on this thread, else one
+    shared no-op context: no record_function, no allocation."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

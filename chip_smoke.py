@@ -729,19 +729,44 @@ def _watch_call_sites(*models):
     """Count the calls of each path kernel's model call sites in `models`,
     apart from the dispatch and the wrappers' counts: forward pre-hooks on
     the GPT blocks (a cached one-row step is a decode, any other call a
-    causal attention), CLVP's unmasked x-transformers attentions without
-    active dropout, the
+    causal attention; a block called while a CUDA graph captures launches
+    nothing, so it counts into the captured decode's own tally, which each
+    of its replays adds: the watched models' captured decodes are dropped on
+    entry and on undo, so every capture is seen), CLVP's unmasked x-transformers
+    attentions without active dropout, the
     diffusion AttentionBlocks (bias, or no bias without relative position
     embeddings; gn_qkv with fused_gn) and ScaleShiftResBlocks, and a wrapper
     around models.quantize.nearest. Returns (counts by kernel, undo)."""
     from ttts_tpu_torch.models import clvp, diffusion_net, gpt, quantize
 
     sites = dict.fromkeys(KERNELS, 0)
+    captured = dict.fromkeys(KERNELS, 0)  # the call sites of the capture under way
+    graphs = gpt._DecodeGraphs
+
+    class WatchedGraphs(graphs):
+        def __init__(self, *args):
+            captured.update(dict.fromkeys(KERNELS, 0))
+            super().__init__(*args)
+            self.sites = dict(captured)  # a replay's call sites
+
+        def replay_decode(self):
+            super().replay_decode()
+            for name, n in self.sites.items():
+                sites[name] += n
+
+    def drop_captures():
+        for model in models:
+            if isinstance(model, gpt.UnifiedVoice):
+                model.decode_graph = None
+
+    drop_captures()
+    gpt._DecodeGraphs = WatchedGraphs
 
     def gpt_block(mod, args, kwargs):
         cache = args[1] if len(args) > 1 else kwargs.get("cache")
         one_row = cache is not None and args[0].shape[1] == 1
-        sites["decode_attention" if one_row else "flash_attention_causal"] += 1
+        tally = captured if torch.cuda.is_current_stream_capturing() else sites
+        tally["decode_attention" if one_row else "flash_attention_causal"] += 1
 
     def clvp_attention(mod, args, kwargs):  # Attention.forward's dispatch rule
         mask = args[1] if len(args) > 1 else kwargs.get("mask")
@@ -774,6 +799,8 @@ def _watch_call_sites(*models):
         for h in handles:
             h.remove()
         quantize.nearest = nearest
+        gpt._DecodeGraphs = graphs
+        drop_captures()
 
     return sites, undo
 

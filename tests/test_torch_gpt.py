@@ -22,6 +22,7 @@ from ttts_tpu.ops.pallas import decode_attention as jdec
 from ttts_tpu_torch import porting
 from ttts_tpu_torch.models import sampling as tsamp
 from ttts_tpu_torch.models.gpt import UnifiedVoice, inference_speech
+from ttts_tpu_torch.ops.cuda import decode_attention as dec
 from ttts_tpu_torch.ops.cuda.decode_attention import decode_attention
 
 ATOL = 1e-4
@@ -191,6 +192,95 @@ def test_generation_with_jax_draws_is_identical(gpt, typical):
                                torch.from_numpy(gumbel))
     assert (want[:, :4] != C.stop_mel_token).all()  # real draws, not an instant stop
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _loop_of_ints(model, text, prompt, max_gen, sampling, gumbel):
+    """The generation loop as it was before its step became one body over
+    buffers and device words (positions as Python ints, `done` read after
+    every draw), frozen here as the step body's reference. Returns the
+    codes and the number of draws."""
+    c = model.cfg
+    b = text.shape[0]
+    prefix_len = text.shape[1] + 2 + prompt.shape[1] + 1
+    cache, logits, _, mel_off = model.prefill(text, prompt, prefix_len + max_gen)
+    counts = torch.zeros(b, c.number_mel_codes, dtype=torch.int32)
+    counts.scatter_add_(1, prompt, torch.ones_like(prompt, dtype=torch.int32))
+    tokens = torch.full((b, max_gen), c.stop_mel_token, dtype=torch.long)
+    done = torch.zeros(b, dtype=torch.bool)
+    rows = torch.arange(b)
+    step = dec.pick(model.act_dtype, c.model_dim // c.heads)
+    for i in range(max_gen):
+        tok = tsamp.sample_logits(logits, counts, sampling, gumbel[i])
+        tok = torch.where(done, c.stop_mel_token, tok)
+        done = done | (tok == c.stop_mel_token)
+        counts[rows, tok] += 1
+        tokens[:, i] = tok
+        if bool(done.all()):
+            break
+        logits = model.decode_one(tok, cache, prefix_len + i, mel_off + i, step)
+    return tokens, i + 1
+
+
+# (draws, {row: the step at which its stop is forced}, top_p): no stop; rows
+# stopping apart, one 3 steps before a multiple of 8, one never; every row
+# stopping (the loop ends early); a length that is no multiple of 8
+STOPS = {"no_stop": (24, {}, 0.8), "rows_apart": (24, {0: 4, 1: 13}, 1.0),
+         "all_stop": (24, {0: 2, 1: 13, 2: 7}, 1.0), "ragged_length": (19, {2: 10}, 1.0)}
+
+
+@pytest.mark.parametrize("case", sorted(STOPS))
+def test_step_body_matches_the_loop_of_ints(gpt, case):
+    """inference_speech's step body (buffers, the noise's row and the
+    tokens' column from a device word) draws the codes of the loop it
+    replaced, on the CPU's eager loop; the
+    stops are forced through the noise (top_p 1 keeps the stop token
+    drawable)."""
+    _, _, port = gpt
+    max_gen, stops, top_p = STOPS[case]
+    text, prompt = (torch.from_numpy(a).long() for a in _inputs(3, b=3))
+    rng = np.random.default_rng(7)
+    gumbel = torch.from_numpy(rng.gumbel(size=(max_gen, 3, C.number_mel_codes))
+                              .astype(np.float32))
+    gumbel[:, :, C.stop_mel_token] = -1e4
+    for row, at in stops.items():
+        gumbel[at, row, C.stop_mel_token] = 1e4
+    sampling = tsamp.SamplingParams(top_p=top_p, temperature=0.8, repetition_penalty=2.0)
+    before = dict(inference_speech.graphs)
+    with torch.no_grad():
+        want, draws = _loop_of_ints(port, text, prompt, max_gen, sampling, gumbel)
+        got = inference_speech(port, text, prompt, max_gen, sampling, gumbel)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for row in range(3):  # each row stops where forced, and only there
+        first = np.flatnonzero(got[row].numpy() == C.stop_mel_token)
+        assert (first[0] if len(first) else None) == stops.get(row)
+    assert draws == (max(stops.values()) + 1 if len(stops) == 3 else max_gen)
+    after = inference_speech.graphs
+    assert after["eager_steps"] - before["eager_steps"] == draws
+    assert (after["captures"], after["replayed_steps"]) == (before["captures"],
+                                                            before["replayed_steps"])
+
+
+def test_eager_step_gives_the_decode_int_rows(gpt, monkeypatch):
+    """The eager loop gives the decode its cache rows as ints, one per layer
+    a step: the plain decode slices its rows on the host, where a device
+    word would cost a synchronise on the card."""
+    _, _, port = gpt
+    seen, plain = [], dec.decode_attention_plain
+
+    def recorded(q, uk, uv, k_cache, v_cache, pos):
+        seen.append(pos)
+        return plain(q, uk, uv, k_cache, v_cache, pos)
+
+    monkeypatch.setattr(dec, "decode_attention_plain", recorded)
+    text, prompt = (torch.from_numpy(a).long() for a in _inputs(5, b=2))
+    gumbel = torch.zeros(5, 2, C.number_mel_codes)
+    gumbel[:, :, C.stop_mel_token] = -1e4
+    sampling = tsamp.SamplingParams(top_p=0.8, temperature=0.8, repetition_penalty=2.0)
+    with torch.no_grad():
+        inference_speech(port, text, prompt, 5, sampling, gumbel)
+    prefix = text.shape[1] + 2 + prompt.shape[1] + 1
+    assert seen == [prefix + i for i in range(5) for _ in range(C.layers)]
+    assert all(type(pos) is int for pos in seen)
 
 
 def test_converter_round_trip(gpt):

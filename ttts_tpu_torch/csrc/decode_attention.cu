@@ -30,6 +30,17 @@
 // rely on another having written row `pos`: the rank whose share holds
 // `pos` takes that row from uk/uv and is the only one that writes it into
 // the caches.
+//
+// `pos` from the device: the kernel reads the row from an int32 word in
+// device memory (`pos_word`), so a CUDA graph captured once replays every
+// step of the serving loop while the loop advances the word on the card; a
+// null word takes `pos` by value (chip_smoke.py, the tests), through the
+// same body. The host checks 0 <= pos < max_len for a value; for a word the
+// decode loop checks once, on the host, the largest row it will reach
+// before it replays (models/gpt.inference_speech), and the kernel guards
+// itself: every block of a launch reads the same word, and with it out of
+// range they all write NaN to `out` and return before any cache access or
+// cluster barrier.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -51,7 +62,8 @@ __device__ __forceinline__ void bf16x8_to_f(const uint4& raw, float (&f)[8]) {
 __global__ void __cluster_dims__(DEC_RANKS, 1, 1) __launch_bounds__(DEC_THREADS)
 decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ uk,
               const bf16* __restrict__ uv, bf16* __restrict__ kc, bf16* __restrict__ vc,
-              bf16* __restrict__ out, int max_len, int pos, float scale) {
+              bf16* __restrict__ out, const int* __restrict__ pos_word, int max_len, int pos_value,
+              float scale) {
   __shared__ __align__(128) uint4 Ks[DEC_PANEL * DEC_VEC];
   __shared__ __align__(128) uint4 Vs[DEC_PANEL * DEC_VEC];
   __shared__ float ps[DEC_PANEL];                    // the panel's scores (log2 domain)
@@ -61,6 +73,11 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ uk,
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), bh = blockIdx.y, tid = threadIdx.x;
+  const int pos = pos_word ? *pos_word : pos_value;
+  if (pos < 0 || pos >= max_len) {  // uniform over the grid: no block reaches a barrier
+    if (rank == 0 && tid < DEC_DK) out[(size_t)bh * DEC_DK + tid] = __float2bfloat16(NAN);
+    return;
+  }
   const int lane = tid & 31, warp = tid >> 5, c = lane & (DEC_VEC - 1);
   const int n = pos + 1, share = (n + DEC_RANKS - 1) / DEC_RANKS;
   const int r0 = min(n, rank * share), r1 = min(n, r0 + share);  // this rank's rows
@@ -187,14 +204,17 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ uk,
 }
 
 // q, uk, uv: (bh, dk) contiguous; kc, vc: (bh, max_len, dk) contiguous; all
-// 16-byte aligned; dk = DEC_DK
+// 16-byte aligned; dk = DEC_DK. pos_word: the row as an int32 in device
+// memory, or null to take `pos` (then 0 <= pos < max_len)
 extern "C" int ttts_decode_attention_bf16(const void* q, const void* uk, const void* uv,
-                                          void* kc, void* vc, void* out, int bh, int max_len,
-                                          int dk, int pos, float scale, void* stream) {
-  if (dk != DEC_DK || pos < 0 || pos >= max_len) return (int)cudaErrorInvalidValue;
+                                          void* kc, void* vc, void* out, const void* pos_word,
+                                          int bh, int max_len, int dk, int pos, float scale,
+                                          void* stream) {
+  if (dk != DEC_DK || (!pos_word && (pos < 0 || pos >= max_len)))
+    return (int)cudaErrorInvalidValue;
   decode_kernel<<<dim3(DEC_RANKS, bh), DEC_THREADS, 0, TTTS_STREAM(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(uk), static_cast<const bf16*>(uv),
-      static_cast<bf16*>(kc), static_cast<bf16*>(vc), static_cast<bf16*>(out), max_len, pos,
-      scale);
+      static_cast<bf16*>(kc), static_cast<bf16*>(vc), static_cast<bf16*>(out),
+      static_cast<const int*>(pos_word), max_len, pos, scale);
   return (int)cudaGetLastError();
 }

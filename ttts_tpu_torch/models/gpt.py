@@ -15,6 +15,17 @@ package gates its decode kernel. `GPTConfig.fused_decode=False` takes the
 plain decode (decode_attention_plain) outside tensor-parallel serving, as
 JAX's decode_attention_reference.
 
+Serving's loop (`inference_speech`) runs one step body over buffers it owns
+(_DecodeLoop). On the card, through the decode kernel and without a
+tensor-parallel group, the body is captured once per shape as two CUDA
+graphs (the draw, the model's step), every position read from int32 words
+on the device (the decode kernel's row among them), and replayed every
+step; the loop reads whether every row has stopped only every DONE_EVERY
+steps, so the host runs ahead of the card. On the CPU, with a
+tensor-parallel group, under autograd recording or through the plain
+decode, the body runs eagerly, the model's step given its rows as ints,
+and the loop reads `done` after every draw.
+
 Dtypes: activations follow the matmul weights' dtype (bf16 after
 `cast_for_inference` on the card; training keeps f32 weights and computes
 in bf16 under autocast, as the JAX package's `_amp_dtype`); LayerNorms and
@@ -109,10 +120,11 @@ class GPT2Block(nn.Module):
         self.mlp.c_proj = Conv1D(4 * dim, dim)
 
     def forward(self, x, cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                pos: int = 0, step=None, tp=None):
+                pos=0, step=None, tp=None):
         """x (B, T, D) in the activation dtype. With a cache: T > 1 writes
         rows [pos, pos+T) and attends causally over those fresh rows (the
-        prefix is self-contained); T == 1 is one decode step at row `pos`
+        prefix is self-contained); T == 1 is one decode step at row `pos` (an
+        int, or an int32 word on the device: decode_attention's `pos`)
         through `step`, the decode-attention function (decode_attention.pick's
         choice, or the plain decode without fused_decode, made here when not
         given). Without: causal self-attention over x; where autograd records
@@ -203,12 +215,13 @@ class UnifiedVoice(nn.Module):
         self.final_norm = LayerNorm(c.model_dim, eps=1e-5)
         self.text_head = nn.Linear(c.model_dim, c.number_text_tokens + 1)
         self.mel_head = nn.Linear(c.model_dim, c.number_mel_codes)
+        self.decode_graph = None  # inference_speech's last captured decode: (key, _DecodeGraphs)
 
     @property
     def act_dtype(self) -> torch.dtype:
         return self.gpt.h[0].attn.c_attn.weight.dtype
 
-    def _stack(self, emb, cache: Optional[Cache] = None, pos: int = 0, step=None, tp=None):
+    def _stack(self, emb, cache: Optional[Cache] = None, pos=0, step=None, tp=None):
         x = F.dropout(emb.to(self.act_dtype), self.cfg.dropout if self.training else 0.0)
         remat = self.cfg.checkpointing and cache is None and torch.is_grad_enabled()
         for i, block in enumerate(self.gpt.h):
@@ -258,30 +271,38 @@ class UnifiedVoice(nn.Module):
         return (_ce(_f32_linear(self.text_head, h_text), text_targets),
                 _ce(mel_logits, mel_targets), mel_logits)
 
-    def prefill(self, text_inputs, prompt_codes, max_len: int, tp=None):
-        """Run the prompt once and fill per-layer caches (B, H, max_len, dk),
-        or, for a tensor-parallel group `tp`, caches of this rank's H/tp
-        heads only (see GPT2Block). Returns (cache, last_logits (B, V) f32,
-        prefix_len, mel_pos_offset)."""
+    def new_cache(self, b: int, max_len: int, device, tp=None) -> Cache:
+        """Zeroed per-layer caches (B, H, max_len, dk), or, for a
+        tensor-parallel group `tp`, caches of this rank's H/tp heads only
+        (see GPT2Block)."""
+        c = self.cfg
+        h = c.heads // (1 if tp is None else dist.get_world_size(tp))
+        return [tuple(torch.zeros(b, h, max_len, c.model_dim // c.heads, dtype=self.act_dtype,
+                                  device=device) for _ in range(2))
+                for _ in range(c.layers)]
+
+    def prefill(self, text_inputs, prompt_codes, max_len: int, tp=None,
+                cache: Optional[Cache] = None):
+        """Run the prompt once and fill its rows of per-layer caches: `cache`
+        (a decode loop's own, max_len rows) or new ones (new_cache). Returns
+        (cache, last_logits (B, V) f32, prefix_len, mel_pos_offset)."""
         c = self.cfg
         text_emb = self._embed_text(text_inputs)
         mel_in = F.pad(prompt_codes, (1, 0), value=c.start_mel_token)
         emb = torch.cat([text_emb, self._embed_mel(mel_in)], dim=1)
-        b, p, d = emb.shape
-        h = c.heads // (1 if tp is None else dist.get_world_size(tp))
-        cache = [tuple(torch.zeros(b, h, max_len, d // c.heads, dtype=self.act_dtype,
-                                   device=emb.device) for _ in range(2))
-                 for _ in range(c.layers)]
+        if cache is None:
+            cache = self.new_cache(emb.shape[0], max_len, emb.device, tp)
         hid = self._stack(emb, cache, 0, tp=tp)
-        return cache, self._head(hid[:, -1]), p, mel_in.shape[1]
+        return cache, self._head(hid[:, -1]), emb.shape[1], mel_in.shape[1]
 
-    def decode_one(self, token, cache: Cache, position: int, mel_position: int, step=None,
-                   tp=None):
+    def decode_one(self, token, cache: Cache, position, mel_position, step=None, tp=None):
         """One decode step at absolute row `position` (mel position
-        `mel_position`); caches update in place; `step` and `tp` as in
+        `mel_position`), each an int or a one-element int32 word on the
+        token's device (read when the step runs, so a CUDA graph of the step
+        follows the word); caches update in place; `step` and `tp` as in
         GPT2Block. Returns logits (B, V) f32."""
-        emb = (self.mel_embedding(token[:, None])
-               + self.mel_pos_embedding.emb.weight[mel_position][None, None])
+        pe = self.mel_pos_embedding.emb.weight[mel_position]  # (D,), or (1, D) for a word
+        emb = self.mel_embedding(token[:, None]) + pe.reshape(1, 1, -1)
         return self._head(self._stack(emb, cache, position, step, tp)[:, 0])
 
 
@@ -297,47 +318,213 @@ def _ce(logits, targets):
     return -logp.gather(-1, targets.long()[..., None]).mean()
 
 
+CACHE_ROWS = 64  # cache lengths round up to this: nearby prompt lengths share a graph
+DONE_EVERY = 8  # decode steps replayed between two reads of the stop word
+
+
+class _DecodeLoop:
+    """What one decode loop owns, and its step. Buffers: the per-layer
+    caches, the logits to draw from (B, V) f32, token counts, the drawn
+    tokens (B, steps), `done`, the call's Gumbel noise (steps, B, V), the
+    token just drawn, and `words`, int32 [step, cache row, mel position] on
+    the device, from which a captured step takes every position (the
+    noise's row, the tokens' column, the cache row, the position
+    embedding). `sample` and `decode` are a step's two halves; each runs
+    eagerly or is captured once as a CUDA graph and replayed, and writes
+    only these buffers.
+    `stop` receives done.all() after every draw, in pinned host memory on
+    the card."""
+
+    def __init__(self, model: "UnifiedVoice", rows: int, cache_len: int, steps: int, dev,
+                 tp=None):
+        v = model.cfg.number_mel_codes
+        self.cache = model.new_cache(rows, cache_len, dev, tp)
+        self.logits = torch.zeros(rows, v, device=dev)
+        self.counts = torch.zeros(rows, v, dtype=torch.int32, device=dev)
+        self.tokens = torch.zeros(rows, steps, dtype=torch.long, device=dev)
+        self.tok = torch.zeros(rows, dtype=torch.long, device=dev)
+        self.done = torch.zeros(rows, dtype=torch.bool, device=dev)
+        self.noise = torch.zeros(steps, rows, v, device=dev)
+        self.words = torch.zeros(3, dtype=torch.int32, device=dev)
+        self.rows = torch.arange(rows, device=dev)
+        card = dev.type == "cuda"
+        self.stop = torch.zeros((), dtype=torch.bool, pin_memory=card)
+        self.event = torch.cuda.Event() if card else None
+
+    def start(self, model: "UnifiedVoice", text_inputs, prompt_codes, gumbel, tp=None):
+        """Set the buffers for a call: the words at step 0, the prompt's
+        cache rows and last logits, the prompt's code counts, no token
+        drawn, the call's noise. Raises where the last step's cache row
+        would lie outside the caches (the decode kernel reads the row from
+        the device and is given no other check)."""
+        c = model.cfg
+        steps, cache_len = self.tokens.shape[1], self.cache[0][0].shape[2]
+        prefix_len = text_inputs.shape[1] + 2 + prompt_codes.shape[1] + 1
+        if prefix_len + steps > cache_len:
+            raise ValueError(f"decode: {prefix_len} prompt rows and {steps} steps overrun "
+                             f"caches of {cache_len} rows")
+        self.prefix_len, self.mel_off = prefix_len, prompt_codes.shape[1] + 1
+        self.words.copy_(torch.tensor([0, prefix_len, self.mel_off], dtype=torch.int32))
+        _, logits, _, _ = model.prefill(text_inputs, prompt_codes, cache_len, tp, self.cache)
+        self.logits.copy_(logits)
+        self.counts.zero_().scatter_add_(1, prompt_codes,
+                                         torch.ones_like(prompt_codes, dtype=torch.int32))
+        self.tokens.fill_(c.stop_mel_token)
+        self.done.zero_()
+        self.noise.copy_(gumbel)
+
+    def sample(self, sampling: SamplingParams, stop_token: int):
+        """Draw the step's tokens; a row that has stopped draws the stop
+        token again."""
+        i = self.words[:1]
+        tok = sample_logits(self.logits, self.counts, sampling, self.noise.index_select(0, i)[0])
+        tok = torch.where(self.done, stop_token, tok)
+        self.done |= tok == stop_token
+        self.counts[self.rows, tok] += 1
+        self.tokens.scatter_(1, i.long().expand(tok.shape[0], 1), tok[:, None])
+        self.tok.copy_(tok)
+        self.stop.copy_(self.done.all(), non_blocking=True)
+
+    def decode(self, model: "UnifiedVoice", step, tp=None, i: Optional[int] = None):
+        """The model's step on the drawn tokens, then the next step's words.
+        The cache row and mel position come from the words, or, given the
+        host's step `i` (the eager loop), as ints: the plain decode slices
+        its rows on the host, and would read a word with a synchronise."""
+        if i is None:
+            at = self.words[1:2], self.words[2:3]
+        else:
+            at = self.prefix_len + i, self.mel_off + i
+        self.logits.copy_(model.decode_one(self.tok, self.cache, *at, step, tp))
+        self.words += 1
+
+    def all_done(self) -> bool:
+        """Whether every row had stopped at the last draw (a synchronise on
+        the card)."""
+        if self.event is not None:
+            self.event.record()
+            self.event.synchronize()
+        return bool(self.stop)
+
+
+class _DecodeGraphs:
+    """A decode loop with its step captured as two CUDA graphs, the draw
+    (`sample`) and the model's step (`decode`), sharing one memory pool
+    that holds the step's scratch. Warmed up once on a side stream, as
+    torch.cuda.graphs asks, then captured. `launches`: the decode kernel's
+    launches the wrapper counted while the model's step was captured, which
+    each replay makes (replay_decode adds them to its count)."""
+
+    def __init__(self, model: "UnifiedVoice", loop: _DecodeLoop, sampling: SamplingParams,
+                 step):
+        self.loop = loop
+        stop = model.cfg.stop_mel_token
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            loop.sample(sampling, stop)
+            loop.decode(model, step)
+        torch.cuda.current_stream().wait_stream(side)
+        counter = decode_attention.decode_attention
+        self.sample, self.decode = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.sample):
+            loop.sample(sampling, stop)
+        launched = counter.launches
+        with torch.cuda.graph(self.decode, pool=self.sample.pool()):
+            loop.decode(model, step)
+        self.launches = counter.launches - launched
+        counter.launches = launched  # a capture launches nothing
+
+    def replay_decode(self):
+        self.decode.replay()
+        decode_attention.decode_attention.launches += self.launches
+
+
+def _decode_graphs(model: "UnifiedVoice", rows: int, cache_len: int, steps: int,
+                   sampling: SamplingParams, dev, step) -> _DecodeGraphs:
+    """The model's captured decode for this shape, sampler and weights
+    (their storage and version, so an in-place update captures anew, as
+    GPT2Block._local_qkv relays its weights). The model keeps one, the last
+    used (each serving cell calls one shape): another key releases it, then
+    captures its own. What it holds stays on the card between calls
+    (`model.decode_graph = None` releases it): the caches, the noise and
+    the pool with the sampler's (rows, V, V) scratch."""
+    weights = tuple((p.data_ptr(), p._version) for p in model.parameters())
+    key = (rows, cache_len, steps, model.cfg.number_mel_codes, sampling, dev, model.training,
+           weights)
+    if model.decode_graph is None or model.decode_graph[0] != key:
+        model.decode_graph = None
+        loop = _DecodeLoop(model, rows, cache_len, steps, dev)
+        with torch.no_grad():
+            model.decode_graph = key, _DecodeGraphs(model, loop, sampling, step)
+        inference_speech.graphs["captures"] += 1
+    return model.decode_graph[1]
+
+
 def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
                      max_generate_length: int, sampling: SamplingParams,
                      gumbel: torch.Tensor, tp=None) -> torch.Tensor:
-    """Autoregressive mel-code generation (gpt.py:465-588) as a Python loop.
+    """Autoregressive mel-code generation (gpt.py:465-588).
 
     text_inputs (B, Lt), prompt_codes (B, Lp); gumbel (max_generate_length,
     B, V) is the noise of each step's draw. Returns codes (B,
-    max_generate_length), stop_mel_token after each sequence's stop. The
-    loop ends once every sequence has stopped. `tp`: a process group of
-    tensor-parallel shards over the heads (JAX's tp_shards / decode_spmd,
-    gpt.py:474): the parameters stay replicated, each rank holds and
-    attends over its own heads' caches through the decode kernel, and every
-    rank draws the same tokens from the same `gumbel`. Each iteration is a
-    `ttts.gpt.decode_step` span, its draw through the writes of the drawn
-    tokens a `ttts.gpt.sample` span inside it (utils.logging.span)."""
+    max_generate_length), stop_mel_token after each sequence's stop.
+
+    The step is one body (_DecodeLoop: the draw, then the model's step,
+    every position read from words on the device). On the card, through the
+    decode kernel and without a tensor-parallel group, it runs as two CUDA
+    graphs captured once per shape (_decode_graphs: rows, cache length
+    rounded up to CACHE_ROWS, max_generate_length, V, the sampler, the
+    weights; the model keeps the last) and replayed every step; the loop reads whether every row has
+    stopped after every DONE_EVERY-th draw, as the JAX loop tests `done` on
+    the device (rows that have stopped draw the stop token, so the steps
+    after the last stop change no code), so the host runs ahead of the
+    card. The step runs eagerly, testing `done` after every draw and giving
+    the model's step its positions as ints, where the input rules a graph
+    out: a CPU device, a tensor-parallel group `tp`,
+    autograd recording a call on the parameters, or the plain decode
+    (GPTConfig.fused_decode off, or decode_attention.kernel_fits false).
+    `inference_speech.graphs` counts captures, and the steps whose draw was
+    replayed or ran eagerly.
+
+    `tp`: a process group of tensor-parallel shards over the heads (JAX's
+    tp_shards / decode_spmd, gpt.py:474): the parameters stay replicated,
+    each rank holds and attends over its own heads' caches through the
+    decode kernel, and every rank draws the same tokens from the same
+    `gumbel`. Each step is a `ttts.gpt.decode_step` span, its draw through
+    the writes of the drawn tokens a `ttts.gpt.sample` span inside it
+    (utils.logging.span); replays sit in the same spans."""
     c = model.cfg
-    b = text_inputs.shape[0]
+    b, dev = text_inputs.shape[0], text_inputs.device
     prefix_len = text_inputs.shape[1] + 2 + prompt_codes.shape[1] + 1
-    cache, logits, _, mel_off = model.prefill(
-        text_inputs, prompt_codes, prefix_len + max_generate_length, tp)
-    dev = text_inputs.device
-    counts = torch.zeros(b, c.number_mel_codes, dtype=torch.int32, device=dev)
-    counts.scatter_add_(1, prompt_codes, torch.ones_like(prompt_codes, dtype=torch.int32))
-    tokens = torch.full((b, max_generate_length), c.stop_mel_token, dtype=torch.long,
-                        device=dev)
-    done = torch.zeros(b, dtype=torch.bool, device=dev)
-    rows = torch.arange(b, device=dev)
+    cache_len = -(-(prefix_len + max_generate_length) // CACHE_ROWS) * CACHE_ROWS
     recorded = [p for p in model.parameters() if p.requires_grad] if torch.is_grad_enabled() else []
     if c.fused_decode or tp is not None:  # once a call
         step = decode_attention.pick(model.act_dtype, c.model_dim // c.heads, *recorded)
     else:  # JAX's decode_attention_reference (its decode_spmd, here tp, ignores the flag)
         step = decode_attention.decode_attention_plain
+    graphs = None
+    if dev.type == "cuda" and tp is None and step is decode_attention.decode_attention:
+        graphs = _decode_graphs(model, b, cache_len, max_generate_length, sampling, dev, step)
+        loop = graphs.loop
+    else:
+        loop = _DecodeLoop(model, b, cache_len, max_generate_length, dev, tp)
+    loop.start(model, text_inputs, prompt_codes, gumbel, tp)
+    count = inference_speech.graphs
     for i in range(max_generate_length):
         with span("ttts.gpt.decode_step"):
             with span("ttts.gpt.sample"):
-                tok = sample_logits(logits, counts, sampling, gumbel[i])
-                tok = torch.where(done, c.stop_mel_token, tok)
-                done = done | (tok == c.stop_mel_token)
-                counts[rows, tok] += 1
-                tokens[:, i] = tok
-            if bool(done.all()):
+                if graphs is None:
+                    loop.sample(sampling, c.stop_mel_token)
+                else:
+                    graphs.sample.replay()
+            count["eager_steps" if graphs is None else "replayed_steps"] += 1
+            if (graphs is None or (i + 1) % DONE_EVERY == 0) and loop.all_done():
                 break
-            logits = model.decode_one(tok, cache, prefix_len + i, mel_off + i, step, tp)
-    return tokens
+            if graphs is None:
+                loop.decode(model, step, tp, i)
+            else:
+                graphs.replay_decode()
+    return loop.tokens.clone()
+
+
+inference_speech.graphs = {"captures": 0, "replayed_steps": 0, "eager_steps": 0}

@@ -34,7 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # c_void_p: a plain int would be cut to 32 bits)
 _SIGNATURES = {
     "ttts_vq_nearest": (_P, _P, _P, _I, _I, _I, _P),
-    "ttts_decode_attention_bf16": (_P,) * 6 + (_I, _I, _I, _I, _F, _P),
+    "ttts_decode_attention_bf16": (_P,) * 7 + (_I, _I, _I, _I, _F, _P),
     "ttts_flash_attention": (_P,) * 5 + (_I,) * 12 + (_F, _P),
     "ttts_flash_causal_forward": (_P,) * 5 + (_I,) * 10 + (_F, _P),
     "ttts_flash_causal_backward": (_P,) * 10 + (_I,) * 11 + (_F, _P),

@@ -8,6 +8,17 @@ wrapper allocates only the output. The caches use a GPU-natural layout,
 (B, H, max_len, dk) per layer, instead of the TPU's lane-packed
 (max_len, dk, H*B); both versions write row `pos` in place.
 
+`pos` is an int or an int32 word on the device (a tensor of one element).
+The kernel reads a word when it runs, so the GPT's decode loop captures a
+step once as a CUDA graph and replays it while the word advances on the
+card (models/gpt.inference_speech); an int goes to the same kernel by
+value. The wrapper checks 0 <= pos < max_len for an int; a word's range is
+checked once, on the host, by the loop that advances it (the largest row
+it will reach), and the kernel guards itself: with the word out of range it
+writes NaN to the output and touches no cache. The plain version slices
+rows [0, pos], so it reads a word on the host (a synchronise on the card);
+the decode loop's eager step, the only one that takes it, gives it ints.
+
 Under tensor parallelism (decode_attention_spmd, the counterpart of
 ttts_tpu's decode_attention_spmd) a shard owns the contiguous heads
 `head_chunk` of every cache, allocated at (B, H/tp, max_len, dk), and runs
@@ -29,10 +40,11 @@ from ttts_tpu_torch.parallel.mesh import all_gather
 DK = 64  # DEC_DK in decode_attention.cu: the head width the kernel takes
 
 
-def decode_attention_plain(q, uk, uv, k_cache, v_cache, pos: int) -> torch.Tensor:
-    """q, uk, uv: (B, H, dk); caches: (B, H, max_len, dk), row `pos` written
-    in place. Attends over rows <= pos in f32 → (B, H, dk) in q.dtype
-    (ttts_tpu decode_attention_reference)."""
+def decode_attention_plain(q, uk, uv, k_cache, v_cache, pos) -> torch.Tensor:
+    """q, uk, uv: (B, H, dk); caches: (B, H, max_len, dk), row `pos` (an int
+    or a one-element int32 word) written in place. Attends over rows <= pos
+    in f32 → (B, H, dk) in q.dtype (ttts_tpu decode_attention_reference)."""
+    pos = int(pos)
     k_cache[:, :, pos] = uk
     v_cache[:, :, pos] = uv
     kc = k_cache[:, :, : pos + 1].float()
@@ -62,21 +74,28 @@ def pick(dtype: torch.dtype, dk: int, *grad_inputs):
     return decode_attention if use else decode_attention_plain
 
 
-def decode_attention(q, uk, uv, k_cache, v_cache, pos: int) -> torch.Tensor:
-    """One decode-attention step; see decode_attention_plain for shapes. On
-    CUDA the dtype and dk are in the kernel's domain (kernel_fits) and no
-    input requires grad under grad mode (the kernel has no backward)."""
+def decode_attention(q, uk, uv, k_cache, v_cache, pos) -> torch.Tensor:
+    """One decode-attention step; see decode_attention_plain for shapes and
+    the module docstring for `pos`. On CUDA the dtype and dk are in the
+    kernel's domain (kernel_fits) and no input requires grad under grad mode
+    (the kernel has no backward)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, uk, uv, k_cache, v_cache, pos)
+    word = pos if isinstance(pos, torch.Tensor) else None
     tensors = (q, uk, uv, k_cache, v_cache)
     _build.refuse_grad("decode_attention", *tensors)
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+    placed = tensors if word is None else tensors + (word,)
+    if q.device.type != "cuda" or any(t.device != q.device for t in placed):
         raise ValueError("decode_attention: all tensors must be on one CUDA device")
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise ValueError("decode_attention: the kernel takes bfloat16 q, uk, uv and caches")
+    if word is not None and (word.dtype != torch.int32 or word.numel() != 1
+                             or word.data_ptr() % 4):
+        raise ValueError("decode_attention: pos must be an int or one aligned int32 word")
     b, h, max_len, dk = k_cache.shape
     if (q.shape != (b, h, dk) or uk.shape != q.shape or uv.shape != q.shape
-            or v_cache.shape != k_cache.shape or not 0 <= pos < max_len or dk != DK):
+            or v_cache.shape != k_cache.shape or dk != DK
+            or (word is None and not 0 <= pos < max_len)):
         raise ValueError(f"decode_attention: bad shapes {tuple(k_cache.shape)} (dk must be "
                          f"{DK}) or pos {pos}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
@@ -87,7 +106,8 @@ def decode_attention(q, uk, uv, k_cache, v_cache, pos: int) -> torch.Tensor:
     if any(t.data_ptr() % 16 for t in tensors):  # the kernel's 16-byte loads and bulk copies
         raise ValueError("decode_attention: tensors must be 16-byte aligned")
     _build.launch("ttts_decode_attention_bf16", *(t.data_ptr() for t in tensors),
-                  b * h, max_len, dk, pos, 1.0 / math.sqrt(dk))
+                  None if word is None else word.data_ptr(), b * h, max_len, dk,
+                  0 if word is not None else pos, 1.0 / math.sqrt(dk))
     decode_attention.launches += 1
     return out
 

@@ -188,7 +188,20 @@ Phases, one printed line each, any failure raising (non-zero exit):
       launches; the flash step repeated bit for bit under deterministic
       algorithms; `train.mains gpt --config` with flash, attention dropout 0
       and checkpointing for 4 steps at phase (k)'s sizes (12 forward and 12
-      backward launches a step: the checkpoint recomputes each block).
+      backward launches a step: the checkpoint recomputes each block);
+  (q) the grouped expert kernel of the MLA-MoE trunk (csrc/moe_experts.cu,
+      ops/cuda/moe.moe_experts) at the `serve.moonlight.fast.b16` cell's
+      widths (D 2048, F 1408, 64 experts, top 6) and pair counts (a decode
+      step's 384, a prefill's 38 400, a latent pass's 27 840) against its
+      plain per-expert loop (MOE_TOL), timed beside its bound, that loop, a
+      bf16 cuBLAS loop of three products an expert, torch._grouped_mm where
+      the installed torch has it, and, at the decode shape, one batched
+      product of every expert over every row; then a 3-layer trunk at the
+      published widths (a dense layer, two routed) through
+      `inference_speech` on 64 rows: the kernel's launches and the moe
+      counters of a replayed call against its routed layers' passes, and a
+      steady call timed with and without the benchmark's route capture
+      (portbench/traffic/serve_batch_lm.RouteCapture).
 The last two lines are the kernel table as JSON and then
 {"ok": true, "device": {...}}. Imports no JAX; needs a CUDA card.
 """
@@ -3882,6 +3895,220 @@ def phase_flash_train(card: str, rows: list) -> dict:
     return {"launches": runs[0]["launches"], "reps": runs[0]["reps"], "cli": cli}
 
 
+# ---------------------------------------------------------------------- (q)
+
+# The grouped experts against their plain per-expert loop (moe_experts_plain:
+# f32 products of the same bf16 inputs, h rounded to bf16 between them):
+#   rel_l2 <= MOE_TOL, as tests/test_torch_moe_card.py: bf16 inputs and h,
+#   f32 sums in another order; h rounds to bf16 on both sides, and a
+#   last-bit difference there moves y by ~2^-9 of that term: correct
+#   1.5e-4 on an H100. The library yardsticks round h and the down product's
+#   output to bf16 (~4e-3); MOE_LIB_TOL only shows that they compute the
+#   same function.
+MOE_TOL, MOE_LIB_TOL = 5e-3, 2e-2
+MOE_E, MOE_D, MOE_F, MOE_K = 64, 2048, 1408, 6
+MOE_SHAPES = (("decode", 64), ("prefill", 6400), ("latent", 4640))  # token rows
+MOE_SRC = "ttts_tpu_torch/csrc/moe_experts.cu"
+
+
+def _moe_inputs(g, rows: int):
+    """Rows, their MOE_K distinct experts from random scores and weights,
+    sorted as the trunk sorts them: (xs, counts, ws, x, idx, w, dest)."""
+    from ttts_tpu_torch.models import mla_moe
+
+    x = torch.randn(rows, MOE_D, generator=g, device="cuda").bfloat16()
+    idx = torch.rand(rows, MOE_E, generator=g, device="cuda").topk(MOE_K, dim=-1).indices
+    w = torch.rand(rows, MOE_K, generator=g, device="cuda")
+    dest, counts, token = mla_moe.group_pairs(idx, MOE_E)
+    ws = torch.empty(rows * MOE_K, device="cuda").index_copy_(0, dest, w.reshape(-1))
+    return x.index_select(0, token), counts, ws, x, idx, w, dest
+
+
+def _moe_bf16_loop(xs, sizes, gate_up, down, ws):
+    """The experts as bf16 cuBLAS products, gate/up then down, an expert at
+    a time, the group sizes given on the host (no read of the counts: a
+    lower bound of such a loop)."""
+    y = torch.empty(xs.shape, dtype=torch.float32, device=xs.device)
+    at = 0
+    for e, n in enumerate(sizes):
+        if n:
+            g, u = (xs[at: at + n] @ gate_up[e].t()).chunk(2, dim=-1)
+            y[at: at + n] = ((torch.nn.functional.silu(g) * u) @ down[e].t()).float() * \
+                ws[at: at + n, None]
+        at += n
+    return y
+
+
+def _moe_grouped_mm(xs, counts, gate_up, down, ws):
+    """The experts as two torch._grouped_mm calls (CUTLASS grouped GEMMs,
+    the group ends read on the device), h in bf16 between them."""
+    offs = counts.cumsum(0, dtype=torch.int32)
+    gu = torch._grouped_mm(xs, gate_up.transpose(1, 2), offs=offs)
+    g, u = gu.chunk(2, dim=-1)
+    h = torch.nn.functional.silu(g) * u
+    return torch._grouped_mm(h, down.transpose(1, 2), offs=offs).float() * ws[:, None]
+
+
+def _moe_every_expert(x, idx, w, gate_up, down):
+    """Every expert over every row in two batched products, each row's own
+    experts kept: (E, N, 2F) then (E, N, D), masked and summed → each
+    row's combined output (N, D), not each pair's."""
+    gu = torch.einsum("nd,efd->enf", x, gate_up)
+    h = torch.nn.functional.silu(gu[..., :MOE_F]) * gu[..., MOE_F:]
+    y = torch.einsum("enf,edf->end", h, down).float()
+    mask = torch.zeros(MOE_E, x.shape[0], device=x.device)
+    mask.scatter_add_(0, idx.t(), w.t())
+    return (y * mask[..., None]).sum(0)
+
+
+def _moe_kernel_rows(g) -> list:
+    """The kernel at each MOE_SHAPES pair count against the plain loop, and
+    its times beside the bound and the yardsticks."""
+    from portbench.roofline.moe_experts import work
+    from ttts_tpu_torch.ops.cuda import moe
+
+    gate_up = (torch.randn(MOE_E, 2 * MOE_F, MOE_D, generator=g, device="cuda")
+               / MOE_D ** 0.5).bfloat16()
+    down = (torch.randn(MOE_E, MOE_D, MOE_F, generator=g, device="cuda")
+            / MOE_F ** 0.5).bfloat16()
+    out = []
+    for what, rows in MOE_SHAPES:
+        xs, counts, ws, x, idx, w, dest = _moe_inputs(g, rows)
+        sizes, read = counts.tolist(), int((counts > 0).sum())
+        args = (xs, counts, gate_up, down, ws)
+        want = moe.moe_experts_plain(*args)
+        m = compare(moe.moe_experts(*args), want)
+        runs = {"kernel": lambda: moe.moe_experts(*args),
+                "plain": lambda: moe.moe_experts_plain(*args),
+                "bf16_loop": lambda: _moe_bf16_loop(xs, sizes, gate_up, down, ws),
+                "grouped_mm": lambda: _moe_grouped_mm(*args)}
+        if rows <= 64:
+            runs["every_expert"] = lambda: _moe_every_expert(x, idx, w, gate_up, down)
+        lib_err, ms = {}, {}
+        for name, fn in runs.items():
+            try:
+                got = fn()
+            except (RuntimeError, AttributeError, NotImplementedError) as exc:
+                if name != "grouped_mm":
+                    raise
+                ms[name], lib_err[name] = None, f"not available: {str(exc)[:120]}"
+                continue
+            if name not in ("kernel", "plain"):
+                ref = want if name != "every_expert" else \
+                    want.index_select(0, dest).view(rows, MOE_K, -1).sum(1)
+                lib_err[name] = float((got - ref).norm() / ref.norm())
+                if not lib_err[name] <= MOE_LIB_TOL:
+                    raise AssertionError(f"(q) {name} at {what}: rel_l2 {lib_err[name]:.3e} "
+                                         f"> {MOE_LIB_TOL}")
+            ms[name] = median_ms(fn, reps=5 if name == "plain" else 20)
+        wk = work(rows * MOE_K, read, MOE_D, MOE_F)
+        bms, by = bound(wk["flop"], wk["bytes"])
+        shape = f"{rows * MOE_K} pairs over {read} experts ({what})"
+        log(f"(q) moe_experts {shape}: rel_l2 {m['rel_l2']:.3e} (tol {MOE_TOL}) | kernel "
+            f"{ms['kernel']:.4f} ms, plain loop {ms['plain']:.4f} ms, "
+            + ", ".join(f"{k} " + (f"{v:.4f} ms (rel_l2 {lib_err[k]:.1e})" if v is not None
+                                   else lib_err[k]) for k, v in ms.items()
+                        if k not in ("kernel", "plain"))
+            + f" | bound {bms:.4f} ms ({by}), {100 * bms / ms['kernel']:.1f}% of it")
+        if not m["rel_l2"] <= MOE_TOL:
+            raise AssertionError(f"(q) moe_experts at {what}: rel_l2 {m['rel_l2']:.3e} > "
+                                 f"{MOE_TOL}")
+        out.append({"name": f"moe_experts_{what}", "shape": shape,
+                    "max_abs_err": m["max_abs"], "rel_l2": m["rel_l2"], "ms": ms["kernel"],
+                    "plain_ms": ms["plain"], "library_ms": ms["bf16_loop"],
+                    "grouped_mm_ms": ms["grouped_mm"],
+                    "every_expert_ms": ms.get("every_expert"), "bound_ms": bms,
+                    "bound_by": by})
+        del args, want, xs, x
+    return out
+
+
+def _moe_call_ms(model, args, reps: int = 5) -> float:
+    from ttts_tpu_torch.models import gpt
+
+    return median_ms(lambda: gpt.inference_speech(model, *args), reps=reps, warmup=1)
+
+
+def _moe_trunk(g) -> dict:
+    """A 3-layer trunk at the published widths through inference_speech on
+    64 rows: launches and counters of a replayed call, and a steady call
+    with and without the route capture."""
+    from portbench.traffic.serve_batch_lm import RouteCapture
+    from ttts_tpu_torch.config import MLAMoEConfig, default_config
+    from ttts_tpu_torch.models import gpt, mla_moe
+    from ttts_tpu_torch.models.sampling import SamplingParams
+    from ttts_tpu_torch.ops.cuda import moe
+
+    lm = dataclasses.replace(MLAMoEConfig(), num_hidden_layers=3)
+    cfg = dataclasses.replace(default_config().gpt, model_dim=lm.hidden_size,
+                              heads=lm.num_attention_heads, layers=3)
+    with torch.device("meta"):
+        model = gpt.UnifiedVoice(cfg, trunk=lm)
+    mla_moe.materialize(model, torch.device("cuda"), torch.bfloat16, 0)
+    model.eval().requires_grad_(False)
+    routed = sum(b.routed for b in model.gpt.h)
+    rows, steps, v = 64, 64, cfg.number_mel_codes
+    text = torch.randint(1, 255, (rows, 32), generator=g, device="cuda")
+    prompt = torch.randint(0, 1024, (rows, 48), generator=g, device="cuda")
+    gumbel = -torch.log(-torch.log(torch.rand(steps, rows, v, generator=g, device="cuda")))
+    sampling = SamplingParams(top_p=0.8, temperature=0.8, repetition_penalty=2.0)
+    args = (text, prompt, steps, sampling, gumbel)
+    prefix = text.shape[1] + 2 + prompt.shape[1] + 1
+    with torch.no_grad():
+        gpt.inference_speech(model, *args)  # captures
+        moe.moe_experts.launches = 0
+        graphs, seen = dict(gpt.inference_speech.graphs), moe.counters()
+        codes = gpt.inference_speech(model, *args)
+        torch.cuda.synchronize()
+        now = moe.counters()
+        passes = {k: gpt.inference_speech.graphs[k] - graphs[k] for k in graphs}
+        launches = moe.moe_experts.launches
+        want = routed * (1 + passes["replayed_steps"] + passes["eager_steps"])
+        pairs = now["moe.pairs"] - seen["moe.pairs"]
+        want_pairs = routed * MOE_K * rows * (prefix + steps)
+        if (passes["captures"], passes["eager_steps"], launches, pairs) != (
+                0, 0, want, want_pairs) or not codes.shape == (rows, steps):
+            raise AssertionError(
+                f"(q) a replayed trunk call: passes {passes}, moe_experts launches "
+                f"{launches} (want {want}), pairs {pairs} (want {want_pairs})")
+        read = (now["moe.experts_read"] - seen["moe.experts_read"]) / launches
+        bare = _moe_call_ms(model, args)
+        log_ = RouteCapture(model)
+        model.decode_graph = None  # capture the step with the hooks' writes
+        hooked = _moe_call_ms(model, args)
+        last = log_.decode[1][:, prefix + steps - 1].tolist()
+        log_.remove()
+        model.decode_graph = None
+        bare2 = _moe_call_ms(model, args)
+    if not all(len(set(r)) == MOE_K for r in last):
+        raise AssertionError("(q) the route capture left the last decode step's row unwritten")
+    per = (hooked - (bare + bare2) / 2) / (routed * steps) * 1e3
+    log(f"(q) 3-layer trunk ({routed} routed), {rows} rows, prefix {prefix}, {steps} steps: "
+        f"moe_experts launches {launches} = {routed} routed x (1 prefill + "
+        f"{passes['replayed_steps']} replayed steps), pairs {pairs}, {read:.1f} experts read a "
+        f"launch | a call {bare:.2f} / {bare2:.2f} ms, with the route capture {hooked:.2f} ms: "
+        f"{per:.2f} us a routed layer a step (x 26 x 256 in the cell's call: "
+        f"{per * 26 * 256 / 1e3:.2f} ms)")
+    del model
+    return {"launches": launches, "route_capture_us": per}
+
+
+def phase_moe(card: str) -> dict:
+    """(q) The grouped expert kernel at the MLA-MoE cell's shapes and in a
+    trunk's decode → its kernel-table rows."""
+    t_phase = time.perf_counter()
+    g = torch.Generator("cuda").manual_seed(20)
+    rows = _moe_kernel_rows(g)
+    torch.cuda.empty_cache()
+    trunk = _moe_trunk(g)
+    torch.cuda.empty_cache()
+    table = [{"name": r["name"], "route": "cuda", "source": MOE_SRC, "replaces": None,
+              "launches_trunk_call": trunk["launches"], **{k: r[k] for k in r if k != "name"}}
+             for r in rows]
+    log(f"(q) phase (q) {time.perf_counter() - t_phase:.1f} s | card {card}")
+    return {"table": table, "route_capture_us": trunk["route_capture_us"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3913,6 +4140,8 @@ def main() -> int:
     multi = phase_multigpu(card, rows)
     torch.cuda.empty_cache()
     flash = phase_flash_train(card, rows)
+    torch.cuda.empty_cache()
+    moe_rows = phase_moe(card)["table"]
     table = []
     for name, (_, _, _, source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
@@ -3957,6 +4186,7 @@ def main() -> int:
                       "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                       "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                       "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    table += moe_rows  # the MLA-MoE trunk's experts: no TPU kernel, launches of (q)'s call
     log(f"total {time.perf_counter() - t_start:.1f} s; steady RTF fast {rtf['fast']:.4f}, "
         f"ultra_fast {rtf['ultra_fast']:.4f}")
     print(f"card: {card}", flush=True)

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ttts_tpu_torch.config import TTTSConfig, default_config
+from ttts_tpu_torch.config import MLAMoEConfig, TTTSConfig, default_config
 from ttts_tpu_torch.infer_utils import STAGES, load_state_dict, prepare_device
 from ttts_tpu_torch.text import default_tokenizer, text_to_pinyin
 from ttts_tpu_torch.diffusion import cfg_eps_fn, get_ode_sampler
@@ -55,6 +55,7 @@ from ttts_tpu_torch.models.diffusion_net import (
     denormalize_tacotron_mel,
     normalize_tacotron_mel,
 )
+from ttts_tpu_torch.models import mla_moe
 from ttts_tpu_torch.models.gpt import UnifiedVoice, inference_speech
 from ttts_tpu_torch.models.sampling import SamplingParams, sample_gumbel
 from ttts_tpu_torch.models.vocos import Vocos
@@ -92,7 +93,8 @@ def cast_for_inference(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
     """Store matmul weights in `dtype`; LayerNorm / GroupNorm / RMSNorm
     parameters and output heads stay f32 (ttts_tpu cast_params_for_inference)."""
     for name, m in module.named_modules():
-        if isinstance(m, (nn.LayerNorm, nn.GroupNorm, RMSNorm)) or "head" in name:
+        if isinstance(m, (nn.LayerNorm, nn.GroupNorm, RMSNorm) + mla_moe.F32_MODULES) or \
+                "head" in name:
             continue
         for p in m.parameters(recurse=False):
             p.data = p.data.to(dtype)
@@ -157,13 +159,21 @@ class TextToSpeech:
     """Resident-model serving orchestrator."""
 
     def __init__(self, cfg: Optional[TTTSConfig] = None, device="cuda", seed: int = 0,
-                 mesh=None):
+                 mesh=None, trunk: Optional[MLAMoEConfig] = None):
         """Random weights from `seed`; `set_params` loads a stage's weights
         (e.g. from ttts_tpu_torch.porting). `device` is the card unless the
         caller asks for the CPU; with no card, the default fails. `mesh`: a
         DeviceMesh of parallel.make_mesh (see the module docstring); every
-        process of it constructs the TextToSpeech and makes the same calls."""
+        process of it constructs the TextToSpeech and makes the same calls.
+        `trunk`: an MLAMoEConfig makes the GPT's trunk that public LLM
+        block (models/mla_moe.py; UnifiedVoice's `trunk`), built on the meta
+        device and made on `device` in the serving dtype (bf16 on the card,
+        its norms and router f32; f32 on the CPU), so no f32 copy of it is
+        ever held; it has no mesh path and raises under one."""
         self.cfg = c = cfg or default_config()
+        if trunk is not None and mesh is not None:
+            raise NotImplementedError("the MLA-MoE trunk has no mesh (data, tensor or "
+                                      "sequence parallel) serving path")
         self.device = prepare_device(device)
         self.tok = default_tokenizer()
         self.mesh = mesh
@@ -172,7 +182,13 @@ class TextToSpeech:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.codec = SynthesizerTrn(c.vqvae, spec_channels=c.audio.filter_length // 2 + 1)
-            self.gpt = UnifiedVoice(c.gpt)
+            if trunk is None:
+                self.gpt = UnifiedVoice(c.gpt)
+            else:
+                with torch.device("meta"):
+                    self.gpt = UnifiedVoice(c.gpt, trunk=trunk)
+                dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+                mla_moe.materialize(self.gpt, self.device, dtype, seed)
             self.diffusion = AA_diffusion(c.diffusion_net, sp_mesh=sp_mesh)
             self.vocos = Vocos(c.vocos)
             self.clvp = CLVP(c.clvp)

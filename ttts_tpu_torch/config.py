@@ -264,6 +264,85 @@ def default_config() -> TTTSConfig:
     return TTTSConfig()
 
 
+@dataclass(frozen=True)
+class MLAMoEConfig:
+    """A public LLM block as the trunk of UnifiedVoice (models/mla_moe.py):
+    multi-head latent attention and sigmoid-routed experts with shared
+    experts, under the published `deepseek_v3` config.json's key names.
+    The defaults are Moonlight-16B-A3B's
+    (https://huggingface.co/moonshotai/Moonlight-16B-A3B/blob/main/config.json);
+    the trunk keeps UnifiedVoice's own embeddings, position tables and heads,
+    so `vocab_size` is not read. Kept apart from TTTSConfig, whose tree
+    equals the JAX package's; `check_matches` ties it to a GPTConfig."""
+
+    attention_bias: bool = False
+    ep_size: int = 1
+    first_k_dense_replace: int = 1
+    hidden_act: str = "silu"
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    kv_lora_rank: int = 512
+    max_position_embeddings: int = 8192
+    model_type: str = "deepseek_v3"
+    moe_intermediate_size: int = 1408
+    moe_layer_freq: int = 1
+    n_group: int = 1
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    norm_topk_prob: bool = True
+    num_attention_heads: int = 16
+    num_experts_per_tok: int = 6
+    num_hidden_layers: int = 27
+    num_key_value_heads: int = 16
+    num_nextn_predict_layers: int = 0
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 50000.0
+    routed_scaling_factor: float = 2.446
+    scoring_func: str = "sigmoid"
+    seq_aux: bool = True
+    tie_word_embeddings: bool = False
+    topk_group: int = 1
+    topk_method: str = "noaux_tc"
+    v_head_dim: int = 128
+    vocab_size: int = 163840
+
+    @classmethod
+    def from_published(cls, data: dict) -> "MLAMoEConfig":
+        """The fields found among `data`'s keys (a config.json, or a file
+        that holds its keys beside others); every field must be there."""
+        names = [f.name for f in dataclasses.fields(cls)]
+        missing = [n for n in names if n not in data]
+        if missing:
+            raise KeyError(f"MLAMoEConfig: keys missing: {missing}")
+        return cls(**{n: data[n] for n in names})
+
+    def check_matches(self, gpt: "GPTConfig") -> None:
+        """Raise where the GPTConfig the trunk serves disagrees with it, or
+        where the block takes a setting the port does not compute."""
+        for mine, theirs, what in ((self.hidden_size, gpt.model_dim, "hidden_size / model_dim"),
+                                   (self.num_attention_heads, gpt.heads,
+                                    "num_attention_heads / heads"),
+                                   (self.num_hidden_layers, gpt.layers,
+                                    "num_hidden_layers / layers")):
+            if mine != theirs:
+                raise ValueError(f"MLAMoEConfig and GPTConfig disagree on {what}: {mine} != "
+                                 f"{theirs}")
+        unsupported = {"q_lora_rank": self.q_lora_rank is not None,
+                       "n_group / topk_group": (self.n_group, self.topk_group) != (1, 1),
+                       "scoring_func": self.scoring_func != "sigmoid",
+                       "topk_method": self.topk_method != "noaux_tc",
+                       "hidden_act": self.hidden_act != "silu",
+                       "attention_bias": self.attention_bias,
+                       "moe_layer_freq": self.moe_layer_freq != 1,
+                       "num_key_value_heads": self.num_key_value_heads != self.num_attention_heads}
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise NotImplementedError(f"MLAMoEConfig: the port does not compute {bad}")
+
+
 def to_dict(cfg) -> dict:
     """A config dataclass → nested plain dicts (ttts_tpu.config.to_dict)."""
     return dataclasses.asdict(cfg)

@@ -26,6 +26,12 @@ tensor-parallel group, under autograd recording or through the plain
 decode, the body runs eagerly, the model's step given its rows as ints,
 and the loop reads `done` after every draw.
 
+`UnifiedVoice(cfg, trunk=MLAMoEConfig(...))` builds a public LLM block's
+layers (models/mla_moe.py: latent attention, routed and shared experts)
+in place of the GPT-2 blocks: the embeddings, tables, final_norm and heads
+stay, each block makes and reads its own cache (new_cache), and the step
+body and its graphs serve either trunk.
+
 Dtypes: activations follow the matmul weights' dtype (bf16 after
 `cast_for_inference` on the card; training keeps f32 weights and computes
 in bf16 under autocast, as the JAX package's `_amp_dtype`); LayerNorms and
@@ -56,7 +62,7 @@ dropout masks.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -64,13 +70,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ttts_tpu_torch.config import GPTConfig
+from ttts_tpu_torch.config import GPTConfig, MLAMoEConfig
+from ttts_tpu_torch.models import mla_moe
 from ttts_tpu_torch.models.sampling import SamplingParams, sample_logits
-from ttts_tpu_torch.ops.cuda import _build, attention, decode_attention
+from ttts_tpu_torch.ops.cuda import _build, attention, decode_attention, moe
 from ttts_tpu_torch.parallel.mesh import all_gather
 from ttts_tpu_torch.utils.logging import span
 
-Cache = List[Tuple[torch.Tensor, torch.Tensor]]
+Cache = list  # a layer's own cache: GPT2Block's (k, v), mla_moe.Block's latent tensor
 
 
 def gelu_new(x):
@@ -118,6 +125,18 @@ class GPT2Block(nn.Module):
         self.mlp = nn.Module()
         self.mlp.c_fc = Conv1D(dim, 4 * dim)
         self.mlp.c_proj = Conv1D(4 * dim, dim)
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return self.attn.c_attn.weight.dtype
+
+    def new_cache(self, b: int, max_len: int, device, dtype, tp=None):
+        """Zeroed (k, v) caches (B, H, max_len, dk), or, for a
+        tensor-parallel group `tp`, of this rank's H/tp heads only."""
+        h = self.heads // (1 if tp is None else dist.get_world_size(tp))
+        dk = self.attn.c_proj.weight.shape[0] // self.heads
+        return tuple(torch.zeros(b, h, max_len, dk, dtype=dtype, device=device)
+                     for _ in range(2))
 
     def forward(self, x, cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 pos=0, step=None, tp=None):
@@ -194,9 +213,15 @@ class GPT2Block(nn.Module):
 
 
 class UnifiedVoice(nn.Module):
-    def __init__(self, cfg: GPTConfig, mel_length_compression: int = 1024):
+    def __init__(self, cfg: GPTConfig, mel_length_compression: int = 1024,
+                 trunk: Optional[MLAMoEConfig] = None):
+        """`trunk`: None builds the GPT-2 blocks; an MLAMoEConfig builds its
+        blocks (models/mla_moe.py, whose settings must match `cfg`:
+        MLAMoEConfig.check_matches) with an RMSNorm ln_f. The embeddings,
+        position tables, final_norm and heads are the same either way."""
         super().__init__()
         c = self.cfg = cfg
+        self.trunk = trunk
         self.mel_length_compression = mel_length_compression
         self.text_embedding = nn.Embedding(c.number_text_tokens + 1, c.model_dim)
         self.mel_embedding = nn.Embedding(c.number_mel_codes, c.model_dim)
@@ -208,10 +233,16 @@ class UnifiedVoice(nn.Module):
                     self.text_pos_embedding.emb, self.mel_pos_embedding.emb):
             nn.init.normal_(emb.weight, std=0.02)
         self.gpt = nn.Module()
-        self.gpt.h = nn.ModuleList(GPT2Block(c.model_dim, c.heads, c.dropout, c.attn_dropout,
-                                             c.flash_attention, c.fused_decode)
-                                   for _ in range(c.layers))
-        self.gpt.ln_f = LayerNorm(c.model_dim, eps=1e-5)
+        if trunk is None:
+            self.gpt.h = nn.ModuleList(GPT2Block(c.model_dim, c.heads, c.dropout,
+                                                 c.attn_dropout, c.flash_attention,
+                                                 c.fused_decode)
+                                       for _ in range(c.layers))
+            self.gpt.ln_f = LayerNorm(c.model_dim, eps=1e-5)
+        else:
+            trunk.check_matches(c)
+            self.gpt.h = nn.ModuleList(mla_moe.Block(trunk, i) for i in range(c.layers))
+            self.gpt.ln_f = mla_moe.RMSNorm(c.model_dim, trunk.rms_norm_eps)
         self.final_norm = LayerNorm(c.model_dim, eps=1e-5)
         self.text_head = nn.Linear(c.model_dim, c.number_text_tokens + 1)
         self.mel_head = nn.Linear(c.model_dim, c.number_mel_codes)
@@ -219,7 +250,7 @@ class UnifiedVoice(nn.Module):
 
     @property
     def act_dtype(self) -> torch.dtype:
-        return self.gpt.h[0].attn.c_attn.weight.dtype
+        return self.gpt.h[0].act_dtype
 
     def _stack(self, emb, cache: Optional[Cache] = None, pos=0, step=None, tp=None):
         x = F.dropout(emb.to(self.act_dtype), self.cfg.dropout if self.training else 0.0)
@@ -272,14 +303,12 @@ class UnifiedVoice(nn.Module):
                 _ce(mel_logits, mel_targets), mel_logits)
 
     def new_cache(self, b: int, max_len: int, device, tp=None) -> Cache:
-        """Zeroed per-layer caches (B, H, max_len, dk), or, for a
-        tensor-parallel group `tp`, caches of this rank's H/tp heads only
-        (see GPT2Block)."""
-        c = self.cfg
-        h = c.heads // (1 if tp is None else dist.get_world_size(tp))
-        return [tuple(torch.zeros(b, h, max_len, c.model_dim // c.heads, dtype=self.act_dtype,
-                                  device=device) for _ in range(2))
-                for _ in range(c.layers)]
+        """Zeroed per-layer caches of max_len rows, each the block's own
+        (GPT2Block: (k, v) (B, H, max_len, dk), for a tensor-parallel group
+        `tp` of this rank's H/tp heads only; mla_moe.Block: the latent cache
+        (B, max_len, 576))."""
+        return [block.new_cache(b, max_len, device, self.act_dtype, tp)
+                for block in self.gpt.h]
 
     def prefill(self, text_inputs, prompt_codes, max_len: int, tp=None,
                 cache: Optional[Cache] = None):
@@ -339,6 +368,7 @@ class _DecodeLoop:
                  tp=None):
         v = model.cfg.number_mel_codes
         self.cache = model.new_cache(rows, cache_len, dev, tp)
+        self.cache_len = cache_len
         self.logits = torch.zeros(rows, v, device=dev)
         self.counts = torch.zeros(rows, v, dtype=torch.int32, device=dev)
         self.tokens = torch.zeros(rows, steps, dtype=torch.long, device=dev)
@@ -358,7 +388,7 @@ class _DecodeLoop:
         would lie outside the caches (the decode kernel reads the row from
         the device and is given no other check)."""
         c = model.cfg
-        steps, cache_len = self.tokens.shape[1], self.cache[0][0].shape[2]
+        steps, cache_len = self.tokens.shape[1], self.cache_len
         prefix_len = text_inputs.shape[1] + 2 + prompt_codes.shape[1] + 1
         if prefix_len + steps > cache_len:
             raise ValueError(f"decode: {prefix_len} prompt rows and {steps} steps overrun "
@@ -406,13 +436,17 @@ class _DecodeLoop:
         return bool(self.stop)
 
 
+# the kernel wrappers whose launch counts a replayed decode step adds to
+GRAPH_COUNTED = (decode_attention.decode_attention, moe.moe_experts)
+
+
 class _DecodeGraphs:
     """A decode loop with its step captured as two CUDA graphs, the draw
     (`sample`) and the model's step (`decode`), sharing one memory pool
     that holds the step's scratch. Warmed up once on a side stream, as
-    torch.cuda.graphs asks, then captured. `launches`: the decode kernel's
-    launches the wrapper counted while the model's step was captured, which
-    each replay makes (replay_decode adds them to its count)."""
+    torch.cuda.graphs asks, then captured. `launches`: the launches each
+    wrapper of GRAPH_COUNTED counted while the model's step was captured,
+    which each replay makes (replay_decode adds them to its count)."""
 
     def __init__(self, model: "UnifiedVoice", loop: _DecodeLoop, sampling: SamplingParams,
                  step):
@@ -424,19 +458,20 @@ class _DecodeGraphs:
             loop.sample(sampling, stop)
             loop.decode(model, step)
         torch.cuda.current_stream().wait_stream(side)
-        counter = decode_attention.decode_attention
         self.sample, self.decode = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.sample):
             loop.sample(sampling, stop)
-        launched = counter.launches
+        launched = [fn.launches for fn in GRAPH_COUNTED]
         with torch.cuda.graph(self.decode, pool=self.sample.pool()):
             loop.decode(model, step)
-        self.launches = counter.launches - launched
-        counter.launches = launched  # a capture launches nothing
+        self.launches = [fn.launches - n for fn, n in zip(GRAPH_COUNTED, launched)]
+        for fn, n in zip(GRAPH_COUNTED, launched):
+            fn.launches = n  # a capture launches nothing
 
     def replay_decode(self):
         self.decode.replay()
-        decode_attention.decode_attention.launches += self.launches
+        for fn, n in zip(GRAPH_COUNTED, self.launches):
+            fn.launches += n
 
 
 def _decode_graphs(model: "UnifiedVoice", rows: int, cache_len: int, steps: int,
@@ -482,7 +517,8 @@ def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
     the model's step its positions as ints, where the input rules a graph
     out: a CPU device, a tensor-parallel group `tp`,
     autograd recording a call on the parameters, or the plain decode
-    (GPTConfig.fused_decode off, or decode_attention.kernel_fits false).
+    (GPTConfig.fused_decode off, or decode_attention.kernel_fits false; the
+    MLA-MoE trunk's step takes no decode-attention function).
     `inference_speech.graphs` counts captures, and the steps whose draw was
     replayed or ran eagerly.
 
@@ -498,12 +534,17 @@ def inference_speech(model: UnifiedVoice, text_inputs, prompt_codes,
     prefix_len = text_inputs.shape[1] + 2 + prompt_codes.shape[1] + 1
     cache_len = -(-(prefix_len + max_generate_length) // CACHE_ROWS) * CACHE_ROWS
     recorded = [p for p in model.parameters() if p.requires_grad] if torch.is_grad_enabled() else []
-    if c.fused_decode or tp is not None:  # once a call
+    if model.trunk is not None:  # every kernel of its step reads positions from the device
+        step = None
+        kernels = not recorded
+    elif c.fused_decode or tp is not None:  # once a call
         step = decode_attention.pick(model.act_dtype, c.model_dim // c.heads, *recorded)
+        kernels = step is decode_attention.decode_attention
     else:  # JAX's decode_attention_reference (its decode_spmd, here tp, ignores the flag)
         step = decode_attention.decode_attention_plain
+        kernels = False
     graphs = None
-    if dev.type == "cuda" and tp is None and step is decode_attention.decode_attention:
+    if dev.type == "cuda" and tp is None and kernels:
         graphs = _decode_graphs(model, b, cache_len, max_generate_length, sampling, dev, step)
         loop = graphs.loop
     else:

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "ttts_flash_causal_backward": (_P,) * 10 + (_I,) * 11 + (_F, _P),
     "ttts_resblock": (_P,) * 15 + (_I, _I, _I, _I, _F, _P),
     "ttts_gn_qkv": (_P,) * 8 + (_I,) * 5 + (_F, _P),
+    "ttts_moe_experts": (_P,) * 8 + (_I,) * 4 + (_P,),
 }
 
 # seconds this process spent in nvcc (0.0 when an existing build was reused)
